@@ -1,0 +1,28 @@
+"""Device resolution for the port's entry points.
+
+Entry points default to ``device="cuda"`` and never fall back to the CPU:
+asking for a card that is not there raises.  The CPU is used only when the
+caller asks for it (the tests do).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises when a CUDA device is asked
+    for and none is present.  On CUDA it also turns TF32 off for matmuls and
+    convolutions: the goldens are full float32
+    (``relightableavatar_tpu/eval/golden.py:81-83``), and TF32 keeps about
+    three decimal digits."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} was asked for but torch finds no CUDA "
+                "device; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

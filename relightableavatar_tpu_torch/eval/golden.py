@@ -1,0 +1,128 @@
+"""The fixture avatar and its golden ray bundle, for the port's tests and
+``chip_smoke.py`` (counterpart of ``relightableavatar_tpu/eval/golden.py``
+and of ``tests/test_golden.py:_render``).
+
+Everything is read from tracked files under ``fixtures/`` and ``tests/``:
+the distilled avatar's parameters, the SMPL-H-style body model and motion,
+and the stored 256-ray golden ``tests/golden_relight_24px.npy``.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from relightableavatar_tpu_torch.config import default_cfg
+from relightableavatar_tpu_torch.data.rays import get_full_near_far, get_rays
+from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.models.context import make_bigpose, make_frame_context
+from relightableavatar_tpu_torch.ops.envmap import gen_light_xyz
+from relightableavatar_tpu_torch.renderer.sphere_tracing import (
+    RelightRenderConfig, render_human_block)
+from relightableavatar_tpu_torch.renderer.tracing import STConfig
+from relightableavatar_tpu_torch.smpl.body_model import BodyModel
+from relightableavatar_tpu_torch.smpl.synthetic import make_cameras
+from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.weights import load_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+GOLDEN_RELIGHT_24 = os.path.join(REPO, 'tests', 'golden_relight_24px.npy')
+FRAME_SIZE = 512    # width and height of the exact relight frame of frame_cfg()
+
+
+def fixture_cfg():
+    """Config of the fixture avatar on the exact stack, float32: the
+    settings of ``relightableavatar_tpu/eval/golden.py`` without its
+    acceleration options (52 bones, 3 band samples, HDQ band 0.125 m)."""
+    cfg = default_cfg()
+    cfg.n_bones = 52
+    cfg.cond_dim = 52 * 3
+    cfg.relighting = True
+    cfg.n_samples = 3
+    cfg.dist_th = 0.125
+    cfg.obj_lvis.dist_th = 0.125
+    cfg.tpu.bf16_mlp = False
+    cfg.tpu.knn_impl = 'pallas'
+    return cfg
+
+
+def frame_cfg():
+    """Config of the exact relight frame that ``chip_smoke.py`` and
+    ``eval/profile_frame.py`` render: the fixture avatar with 16 surface and
+    4 shadow iterations and 16x32 light texels."""
+    cfg = fixture_cfg()
+    cfg.sphere_tracing.iter = 16
+    cfg.obj_lvis.iter = 4
+    cfg.env_h, cfg.env_w = 16, 32
+    return cfg
+
+
+def load_fixture(cfg=None, frame: int = 0, device="cuda", root: str = REPO):
+    """(ctx, params, mcfg) of fixture motion frame ``frame`` on ``device``.
+    ``sdf_res`` is 8: the avatar's ``sdf/layers/0/v`` takes 51 = 3 + 3*2*8."""
+    cfg = cfg if cfg is not None else fixture_cfg()
+    model = BodyModel(os.path.join(root, 'fixtures/synthetic_body.npz'))
+    motion = dict(np.load(os.path.join(root, 'fixtures/synthetic_motion.npz')))
+    sh = motion['shapes'][frame]
+    tv, tj, bA, _ = make_bigpose(model, sh)
+    ctx = make_frame_context(model, tv, tj, bA, motion['poses'][frame],
+                             motion['Rh'][frame], motion['Th'][frame], sh,
+                             device=device)
+    mcfg = AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8)
+    params = load_params(os.path.join(root, 'fixtures/synthetic_avatar_params.npz'),
+                         device=device, mcfg=mcfg)
+    return ctx, params, mcfg
+
+
+def golden_bundle_rays(ctx, P: int = 256):
+    """The golden's fixed ray bundle (numpy rng 7): P rays from 2.2 m in
+    front of the body toward N(0, 0.3 m) targets around its centre."""
+    rng = np.random.default_rng(7)
+    center = ctx['Th'].cpu().numpy().reshape(3) + [0, 0, 0.9]
+    ray_o = np.tile(center + [2.2, 0, 0], (P, 1)).astype(np.float32)
+    tgt = center + rng.normal(0, 0.3, (P, 3))
+    ray_d = (tgt - ray_o).astype(np.float32)
+    ray_d /= np.linalg.norm(ray_d, axis=-1, keepdims=True)
+    return ray_o, ray_d
+
+
+def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None):
+    """The 256-ray bundle of ``tests/test_golden.py:_render`` through the
+    port's ``render_human_block``: 6 surface / 2 shadow iterations, a 2x4
+    light grid, a constant 0.6 probe sampled at texel centres."""
+    cfg = fixture_cfg()
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    ray_o, ray_d = golden_bundle_rays(ctx)
+    P = len(ray_o)
+    t = lambda a: torch.as_tensor(a, device=device)
+    lx, la = gen_light_xyz(2, 4, 10.0, device=device)
+    ls = 1.0 / torch.sqrt(la / np.pi)
+    st_surf = STConfig.from_cfg(cfg.sphere_tracing)
+    st_obj = STConfig.from_cfg({**dict(cfg.sphere_tracing), **dict(cfg.obj_lvis)})
+    rcfg = RelightRenderConfig(shadow_block=1024, distant_envmap=True,
+                               **(rcfg_extra or {}))
+    return render_human_block(
+        params, mcfg, ctx, t(ray_o), t(ray_d),
+        torch.full((P,), 0.8, device=device), torch.full((P,), 4.0, device=device),
+        torch.full((2, 4, 3), 0.6, device=device), lx, la, ls, st_surf, st_obj, rcfg)
+
+
+def frame_batch(ctx, H: int, W: int, cam: int = 0):
+    """Rays of camera ``cam`` of ``make_cameras(4, H, W)`` that meet the
+    body's world bounds: (batch dotdict, mask_at_box (H*W,) bool)."""
+    cams = make_cameras(4, H=H, W=W)
+    K, R, T = cams['K'][cam], cams['R'][cam], cams['T'][cam] / 1000.0
+    ray_o, ray_d = get_rays(H, W, K, R, T)
+    ray_o = ray_o.reshape(-1, 3)
+    ray_d = ray_d.reshape(-1, 3)
+    near, far, mab = get_full_near_far(ctx['wbounds'].cpu().numpy(), ray_o, ray_d)
+    batch = dotdict(ray_o=ray_o[mab], ray_d=ray_d[mab], near=near[mab],
+                    far=far[mab], ctx=ctx)
+    return batch, mab
+
+
+def psnr(img: np.ndarray, ref: np.ndarray) -> float:
+    mse = float(((np.asarray(img, np.float64) - np.asarray(ref, np.float64)) ** 2).mean())
+    return float(-10 * np.log10(mse + 1e-12))

@@ -1,0 +1,348 @@
+"""Sphere-traced relight render of one ray block
+(``relightableavatar_tpu/renderer/sphere_tracing.py``; reference
+``lib/networks/renderer/sphere_tracing_renderer.py:265-784``): surface
+sphere trace -> 3-sample surface-band volume render with autodiff normals ->
+DFSS shadow rays toward every light texel -> GGX shading -> sRGB.
+
+Inference on the exact path.  The acceleration options this slice does not
+port raise in :meth:`RelightRenderConfig.from_cfg`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from relightableavatar_tpu_torch.models import anisdf
+from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.ops.aabb import get_near_far_aabb
+from relightableavatar_tpu_torch.ops.brdf import evaluate_shade, microfacet_brdf
+from relightableavatar_tpu_torch.ops.envmap import (gen_light_xyz, linear2srgb,
+                                                    lvis_upsample_matrix,
+                                                    probe_at_texels,
+                                                    sample_envmap_image)
+from relightableavatar_tpu_torch.ops.lbs import normalize
+from relightableavatar_tpu_torch.ops.sdf import volume_rendering
+from relightableavatar_tpu_torch.renderer.tracing import STConfig, sphere_trace
+from relightableavatar_tpu_torch.utils.dotdict import dotdict
+
+# cfg.tpu acceleration options that this slice does not port, with the value
+# that means "off"; turning one on raises instead of being ignored
+_UNPORTED_TPU = {
+    'shadow_grid': 0, 'lvis_sweep': False, 'surf_miss_skip': False,
+    'surf_grid_iters': 0, 'shadow_compact': 0.0, 'shadow_skip_resd': False,
+    'shadow_verts_sub': 1, 'frame_fuse': False, 'volume_cull': 0,
+}
+
+
+class RelightRenderConfig(NamedTuple):
+    """Render knobs of the sphere-traced path."""
+    n_samples: int = 3
+    surf_sample_range: float = 0.005
+    bg_brightness: float = 0.0
+    tonemapping: bool = True
+    relighting: bool = True
+    fresnel_f0: float = 0.02
+    lambert_only: bool = False
+    glossy_only: bool = False
+    cancel_cosine: bool = True
+    no_visibility: bool = False
+    local_visibility: bool = False
+    no_dfss: bool = False
+    only_visibility: bool = False
+    shading_albedo: float = 0.8
+    env_r: float = 10.0
+    bbox_margin: float = 0.25
+    shadow_block: int = 32768
+    lvis_downscale: int = 1           # trace visibility on an (eH/k, eW/k) light grid
+    distant_envmap: bool = False      # light[l] = probe texel l (skip per-dir sampling)
+    want_light_maps: bool = False     # keep (P, L) lvis/ldot maps
+    want_spec_map: bool = True
+    vis_lvis_map: bool = False
+    vis_ldot_map: bool = False
+    check_bound_sdf: bool = False     # debug: colormap |sdf| at termination, early exit
+    check_termination_sdf: bool = False  # debug: |sdf| statistics at hit points
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "RelightRenderConfig":
+        for key, off in _UNPORTED_TPU.items():
+            if cfg.tpu[key] != off:
+                raise NotImplementedError(
+                    f"tpu.{key}={cfg.tpu[key]!r} is not ported; only the exact "
+                    f"path runs (set it to {off!r})")
+        if cfg.ablate_hdq_mode != 'hdq':
+            raise NotImplementedError(
+                f"ablate_hdq_mode={cfg.ablate_hdq_mode!r}: only 'hdq' is ported")
+        return cls(
+            n_samples=int(cfg.n_samples),
+            surf_sample_range=float(cfg.surf_sample_range),
+            bg_brightness=float(cfg.bg_brightness),
+            tonemapping=bool(cfg.tonemapping_rendering),
+            relighting=bool(cfg.relighting),
+            fresnel_f0=float(cfg.fresnel_f0),
+            lambert_only=bool(cfg.lambert_only),
+            glossy_only=bool(cfg.glossy_only),
+            no_visibility=bool(cfg.no_visibility),
+            local_visibility=bool(cfg.local_visibility),
+            no_dfss=bool(cfg.no_dfss),
+            only_visibility=bool(cfg.only_visibility),
+            shading_albedo=float(cfg.shading_albedo),
+            env_r=float(cfg.env_r),
+            bbox_margin=float(cfg.env_lvis.bbox_margin),
+            shadow_block=min(int(cfg.network_chunk_size), 32768),
+            lvis_downscale=int(cfg.tpu.lvis_downscale),
+            distant_envmap=bool(cfg.tpu.distant_envmap),
+            want_light_maps=bool(cfg.vis_novel_light),
+            vis_lvis_map=bool(cfg.vis_lvis_map),
+            vis_ldot_map=bool(cfg.vis_ldot_map),
+            check_bound_sdf=bool(cfg.check_bound_sdf),
+            check_termination_sdf=bool(cfg.check_termination_sdf),
+        )
+
+
+def _debug_colormap(x: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear jet colormap for the ``check_bound_sdf`` view."""
+    x = torch.clamp(x, 0.0, 1.0)
+    r = torch.clamp(1.5 - torch.abs(4.0 * x - 3.0), 0.0, 1.0)
+    g = torch.clamp(1.5 - torch.abs(4.0 * x - 2.0), 0.0, 1.0)
+    b = torch.clamp(1.5 - torch.abs(4.0 * x - 1.0), 0.0, 1.0)
+    return torch.stack([r, g, b], dim=-1)
+
+
+# ---------------------------------------------------------------- visibility
+@torch.no_grad()
+def light_visibility(params, mcfg: AniSDFConfig, ctx,
+                     surf: torch.Tensor,   # (P, 3)
+                     norm: torch.Tensor,   # (P, 3)
+                     acc: torch.Tensor,    # (P,)
+                     xyz: torch.Tensor,    # (L, 3) light texel positions
+                     sharp: torch.Tensor,  # (L,)
+                     bbox: torch.Tensor,   # (2, 3)
+                     lv: STConfig, rcfg: RelightRenderConfig,
+                     soft_shadow: bool = True):
+    """lvis (P, L), ldot (P, L) (sphere_tracing_renderer.py:265-344).
+
+    Only the active shadow rays (front-facing texel of a hit pixel whose ray
+    meets the bbox) are traced, in chunks of ``rcfg.shadow_block``: per ray
+    the trace is independent of the others, so this equals the JAX
+    package's sorted block skip (``sphere_tracing.py:201-237``)."""
+    P = surf.shape[0]
+    L = xyz.shape[0]
+
+    ray_d_l = normalize(xyz)
+    ldot = norm @ ray_d_l.T                                   # (P, L)
+    if rcfg.no_visibility:
+        return torch.ones_like(ldot), ldot
+    if rcfg.local_visibility:
+        return (ldot > 0).to(surf.dtype), ldot
+
+    lfrt = (ldot > 0) & (acc[:, None] > 0)                    # front-facing
+    F = P * L
+    ray_o = surf[:, None, :].expand(P, L, 3).reshape(F, 3)
+    ray_d = ray_d_l[None, :, :].expand(P, L, 3).reshape(F, 3)
+    tan_i = sharp[None, :].expand(P, L).reshape(F, 1)
+
+    nb, fb, _ = get_near_far_aabb(bbox[None], ray_o[None], ray_d[None])
+    nb = torch.clamp(nb[0], min=lv.near_offset)[:, None]
+    fb = torch.clamp(fb[0], min=lv.near_offset)[:, None]
+    lbox = nb < fb                                            # (F, 1)
+    active = lfrt.reshape(F, 1) & lbox
+
+    sdf_fn = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x,
+                                      smooth_transition=True, dist_th=lv.dist_th)
+    occ = torch.ones((F, 1), dtype=surf.dtype, device=surf.device)
+    sel_all = torch.nonzero(active[:, 0]).squeeze(1)
+    blk = min(rcfg.shadow_block, F)
+    for s in range(0, sel_all.shape[0], blk):
+        sel = sel_all[s:s + blk]
+        _, _, o, _, _ = sphere_trace(sdf_fn, ray_o[sel], ray_d[sel], nb[sel],
+                                     fb[sel], lv, tan_i=tan_i[sel],
+                                     soft_shadow=soft_shadow)
+        occ[sel] = o
+
+    # assemble per reference scatter rules (:331-343)
+    lvis = occ * active
+    lvis = lvis * lbox + 1.0 * (~lbox)                        # no bbox hit => lit
+    lvis = lvis * lfrt.reshape(F, 1)                          # back-facing => dark
+    return lvis.reshape(P, L), ldot
+
+
+# ---------------------------------------------------------------- main pass
+@torch.no_grad()
+def render_human_block(params, mcfg: AniSDFConfig, ctx,
+                       ray_o, ray_d, near, far,             # (P,3) (P,3) (P,) (P,)
+                       envmap_probe,                         # (eH, eW, 3)
+                       light_xyz, light_area, light_sharp,   # (eH,eW,3),(eH,eW),(eH,eW)
+                       st_surf: STConfig, st_obj: STConfig,
+                       rcfg: RelightRenderConfig) -> dotdict:
+    """One pixel block of render_human (sphere_tracing_renderer.py:551-784),
+    inference branch."""
+    P = ray_o.shape[0]
+    dev, dt = ray_o.device, ray_o.dtype
+    near_c = near.reshape(P, 1)
+    far_c = far.reshape(P, 1)
+
+    surf_sdf = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True)
+
+    bbox = ctx["wbounds"].clone()
+    bbox[0] -= rcfg.bbox_margin
+    bbox[1] += rcfg.bbox_margin
+
+    # ---- surface intersection
+    surf, edge, occ, st_t, ot_t = sphere_trace(surf_sdf, ray_o, ray_d, near_c,
+                                               far_c, st_surf, soft_shadow=False)
+    depth = (surf[:, 0] - ray_o[:, 0]) / ray_d[:, 0]
+    acc = 1.0 - occ[:, 0]
+    hit = acc > 0
+
+    if rcfg.check_bound_sdf:
+        # colormap of |blended sdf| at ray termination (reference :577-587)
+        d = torch.where(acc[:, None] > 0, surf_sdf(surf), surf_sdf(edge))
+        return dotdict(acc_map=torch.ones_like(acc),
+                       rgb_map=_debug_colormap(torch.abs(d[:, 0]) * 2.0))
+
+    if rcfg.check_termination_sdf:
+        # |sdf| at hit points (reference :765-778)
+        d_term = surf_sdf(surf)
+        w = hit.to(d_term.dtype)
+        term_sdf_sum = torch.sum(torch.abs(d_term[:, 0]) * w).reshape(1)
+        term_sdf_cnt = torch.sum(w).reshape(1)
+
+    # ---- 3-sample surface-band volume render (reference :607-620)
+    S = rcfg.n_samples
+    if S == 1:
+        zval = torch.tensor([0.5], dtype=dt, device=dev)
+    else:
+        zval = torch.linspace(0.0, 1.0, S, dtype=dt, device=dev)
+    net_z = zval * (2 * rcfg.surf_sample_range) - rcfg.surf_sample_range
+    net_pts = surf[:, None, :] + net_z[None, :, None] * ray_d[:, None, :]
+    net_view = ray_d[:, None, :].expand(P, S, 3)
+
+    ret = anisdf.forward(params, mcfg, ctx, net_pts.reshape(P * S, 3),
+                         net_view.reshape(P * S, 3))
+    raw = ret.raw.reshape(P, S, -1)
+    raw, occ_s = raw[..., :-1], raw[..., -1]
+    _, raw, occ_v = volume_rendering(raw, occ_s, bg_brightness=rcfg.bg_brightness)
+    raw = raw / (occ_v[..., None] + 1e-8)     # un-normalize (reference :621)
+
+    out = dotdict()
+    out.acc_map = acc
+    out.surf_map = surf * hit[:, None]
+    out.depth_map = depth * hit
+
+    # channel conventions (reference :632-639)
+    C = raw.shape[-1]
+    rgb = albedo = roughness = None
+    cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
+    if C == 3 + 3 + 3 + 3 + 1 + 3:      # relight: cpts bpts resd albedo rough norm
+        albedo, roughness, norm = raw[..., 9:12], raw[..., 12:13], raw[..., 13:16]
+    elif C == 3 + 3 + 3 + 3 + 3:        # anisdf: cpts bpts resd norm rgb
+        norm, rgb = raw[..., 9:12], raw[..., 12:15]
+    else:
+        raise NotImplementedError(f"raw channels {C}")
+
+    norm = torch.where(torch.sum(norm, dim=-1, keepdim=True) == 0,
+                       torch.ones_like(norm), norm)
+    norm = normalize(norm)
+
+    if albedo is not None:
+        albedo = torch.clamp(albedo, mcfg.albedo_bias, mcfg.albedo_bias + mcfg.albedo_slope)
+        roughness = torch.clamp(roughness, mcfg.roughness_bias,
+                                mcfg.roughness_bias + mcfg.roughness_slope)
+
+    out.norm_map = norm * hit[:, None]
+    if albedo is not None:
+        out.albedo_map = albedo * hit[:, None]
+        out.roughness_map = roughness[..., 0] * hit
+    out.cpts_map = cpts * hit[:, None]
+    out.bpts_map = bpts * hit[:, None]
+    out.resd_map = resd * hit[:, None]
+
+    # ---- relight shading (reference :707-760)
+    if rcfg.relighting and albedo is not None:
+        eH, eW = light_xyz.shape[:2]
+        L = eH * eW
+        xyz = light_xyz.reshape(L, 3)
+        area = light_area.reshape(L)
+        sharp = light_sharp.reshape(L)
+
+        k = rcfg.lvis_downscale
+        if k > 1:
+            # visibility on a coarse (eH/k, eW/k) light grid, lifted back by
+            # a bilinear matrix
+            hc, wc = max(eH // k, 1), max(eW // k, 2)
+            xyz_c, area_c = gen_light_xyz(hc, wc, rcfg.env_r, device=dev)
+            sharp_c = 1.0 / torch.sqrt(area_c / np.pi)
+            xyz_v = xyz_c.reshape(hc * wc, 3)
+            sharp_v = sharp_c.reshape(hc * wc)
+            U = torch.as_tensor(lvis_upsample_matrix(hc, wc, eH, eW), device=dev)
+        else:
+            xyz_v, sharp_v, U = xyz, sharp, None
+
+        lvis, ldot = light_visibility(params, mcfg, ctx, surf, norm, acc,
+                                      xyz_v, sharp_v, bbox, st_obj, rcfg,
+                                      soft_shadow=not rcfg.no_dfss)
+        if U is not None:
+            lvis = torch.clamp(lvis @ U, 0.0, 1.0)
+            ldot = norm @ normalize(xyz).T
+            ldot_mask = (ldot > 0) & (acc[:, None] > 0)
+            lvis = lvis * ldot_mask
+
+        surf2light = normalize(xyz[None, :, :] - surf[:, None, :])   # (P, L, 3)
+        surf2cam = normalize(ray_o - surf)                            # (P, 3)
+        if rcfg.distant_envmap:
+            # light[l] = the probe at texel l's own direction
+            light = probe_at_texels(envmap_probe, light_xyz)[None].expand(P, L, 3)
+        else:
+            light = sample_envmap_image(envmap_probe, surf2light)     # (P, L, 3)
+
+        if rcfg.only_visibility:
+            ldot_shade = torch.ones_like(ldot)
+            light = torch.mean(light, dim=-1, keepdim=True).expand(light.shape)
+        elif rcfg.cancel_cosine:
+            ldot_shade = torch.ones_like(ldot)
+        else:
+            ldot_shade = ldot
+
+        shade = evaluate_shade(lvis, ldot_shade, area, light)
+        brdf = microfacet_brdf(surf2light, surf2cam, norm, albedo, roughness,
+                               f0=rcfg.fresnel_f0, lambert_only=rcfg.lambert_only,
+                               glossy_only=rcfg.glossy_only,
+                               cancel_cosine=rcfg.cancel_cosine)
+        rgb = torch.sum(brdf * shade, dim=-2)
+        if rcfg.tonemapping:
+            rgb = linear2srgb(rgb)
+        out.rgb_map = rgb
+
+        if rcfg.want_spec_map:
+            spec_brdf = microfacet_brdf(
+                surf2light, surf2cam, norm, torch.zeros_like(albedo), roughness,
+                f0=rcfg.fresnel_f0, cancel_cosine=rcfg.cancel_cosine)
+            if rcfg.cancel_cosine:
+                spec_ldot = 1 / (torch.abs(ldot) + 1e-8)
+            else:
+                spec_ldot = torch.ones_like(ldot)
+            spec_shade = evaluate_shade(torch.ones_like(lvis), spec_ldot, area, light)
+            out.spec_map = torch.sum(spec_brdf * spec_shade, dim=-2)
+
+        shade_vis = evaluate_shade(lvis, ldot, area, light)
+        out.shade_map = torch.sum(shade_vis, dim=-2) * rcfg.shading_albedo / np.pi
+        if rcfg.vis_lvis_map:
+            out.shade_map = torch.mean(lvis, dim=-1, keepdim=True).expand(P, 3)
+        if rcfg.vis_ldot_map:
+            out.shade_map = torch.mean(ldot, dim=-1, keepdim=True).expand(P, 3)
+        if rcfg.want_light_maps:
+            out.lvis_map = lvis
+            out.ldot_map = ldot
+    else:
+        out.rgb_map = rgb if rgb is not None else torch.zeros((P, 3), dtype=dt, device=dev)
+
+    # background masking like the reference alpha_output_ (:453-460)
+    for key in ('rgb_map', 'spec_map', 'shade_map'):
+        if key in out:
+            out[key] = out[key] * acc[:, None]
+    if rcfg.check_termination_sdf:
+        out.term_sdf_sum = term_sdf_sum
+        out.term_sdf_cnt = term_sdf_cnt
+    return out

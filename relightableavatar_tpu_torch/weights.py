@@ -1,0 +1,98 @@
+"""Parameters carried across from the JAX package's flat npz layout
+(``relightableavatar_tpu/train/checkpoints.py:23-66``): keys are pytree paths
+such as ``sdf/layers/3/v``; linear weights are stored (in, out) and
+weight-normed layers keep their ``g``/``v`` form.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.ops.embedder import embed_dim
+
+
+def _mlp_shapes(prefix, input_ch, W, D, out_ch, skips=(4,)):
+    shapes = {}
+    for i in range(D + 1):
+        d_in = input_ch if i == 0 else W
+        if i in skips:
+            d_in = input_ch + W
+        d_out = out_ch if i == D else W
+        shapes[f"{prefix}/layers/{i}/w"] = (d_in, d_out)
+        shapes[f"{prefix}/layers/{i}/b"] = (d_out,)
+    return shapes
+
+
+def _wn_shapes(prefix, d_in, d_out):
+    return {f"{prefix}/v": (d_in, d_out), f"{prefix}/g": (d_out,),
+            f"{prefix}/b": (d_out,)}
+
+
+def param_shapes(mcfg: AniSDFConfig) -> dict:
+    """Flat key -> shape of every parameter of the network ``mcfg`` names
+    (the layout of ``relightableavatar_tpu/models/anisdf.py:init_anisdf``)."""
+    shapes = _mlp_shapes("resd", embed_dim(3, mcfg.xyz_res) + mcfg.cond_dim,
+                         256, 8, 3)
+    # SphereSignedDistanceField: the layer before the skip emits W - d_in
+    sdf_in = embed_dim(3, mcfg.sdf_res)
+    dims = [sdf_in] + [256] * 8 + [1 + mcfg.feat_dim]
+    for i in range(len(dims) - 1):
+        d_out = dims[i + 1] - dims[0] if i + 1 == 4 else dims[i + 1]
+        shapes.update(_wn_shapes(f"sdf/layers/{i}", dims[i], d_out))
+    shapes["beta"] = ()
+    rgb_in = 3 + mcfg.feat_dim + embed_dim(3, mcfg.view_res)
+    for i, (d_in, d_out) in enumerate([(rgb_in, 256), (256, 256), (256, 256),
+                                       (256 + mcfg.cond_dim, 256), (256, 3)]):
+        shapes.update(_wn_shapes(f"rgb/l{i}", d_in, d_out))
+    if mcfg.relight:
+        shapes.update(_mlp_shapes("albedo", mcfg.feat_dim, mcfg.relight_width,
+                                  mcfg.relight_depth, 3))
+        shapes.update(_mlp_shapes("roughness", mcfg.feat_dim, mcfg.relight_width,
+                                  mcfg.relight_depth, 1))
+        shapes["env"] = (mcfg.env_h * mcfg.envmap_upscale,
+                         mcfg.env_w * mcfg.envmap_upscale,
+                         1 if mcfg.achro_light else 3)
+    return shapes
+
+
+def params_from_flat(flat: dict, device="cuda",
+                     mcfg: AniSDFConfig | None = None) -> dict:
+    """Flat ``"a/b/c"``-keyed arrays -> nested parameter dict of float32
+    tensors on ``device`` (numeric path parts become list positions).
+    ``mcfg`` defaults to the relight network of the fixture avatar.  Raises
+    on a missing key, an unknown key or a shape mismatch."""
+    dev = resolve_device(device)
+    if mcfg is None:
+        mcfg = AniSDFConfig(relight=True)
+    expected = param_shapes(mcfg)
+    missing = sorted(set(expected) - set(flat))
+    unknown = sorted(set(flat) - set(expected))
+    if missing:
+        raise KeyError(f"missing parameters: {missing}")
+    if unknown:
+        raise KeyError(f"unknown parameters: {unknown}")
+    params: dict = {}
+    for key in sorted(expected):
+        arr = np.asarray(flat[key])
+        if arr.shape != expected[key]:
+            raise ValueError(f"shape mismatch for {key}: got {arr.shape}, "
+                             f"expected {expected[key]}")
+        *path, leaf = key.split("/")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.as_tensor(arr.astype(np.float32), device=dev)
+    # "layers" dicts keyed "0".."8" become lists
+    for net in params.values():
+        if isinstance(net, dict) and "layers" in net:
+            net["layers"] = [net["layers"][str(i)] for i in range(len(net["layers"]))]
+    return params
+
+
+def load_params(path: str, device="cuda", mcfg: AniSDFConfig | None = None) -> dict:
+    """:func:`params_from_flat` of an npz file."""
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    return params_from_flat(flat, device=device, mcfg=mcfg)

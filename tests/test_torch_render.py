@@ -1,0 +1,175 @@
+"""The port's relight render against the JAX package's and the stored golden.
+
+The golden bundle of ``tests/test_golden.py:_render`` (256 rays, 6 surface /
+2 shadow iterations, 2x4 lights, numpy rng 7) goes through the port's
+``render_human_block`` and must reach >= 50 dB against both the live JAX
+render with the exact KNN (``knn_impl='pallas'``) and
+``tests/golden_relight_24px.npy``.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from relightableavatar_tpu.config import default_cfg as j_default_cfg
+from relightableavatar_tpu.models import anisdf as j_anisdf
+from relightableavatar_tpu.models.context import make_bigpose, make_frame_context
+from relightableavatar_tpu.ops.envmap import gen_light_xyz as j_gen_light_xyz
+from relightableavatar_tpu.renderer.sphere_tracing import (
+    RelightRenderConfig as JRelightRenderConfig, render_human_block as j_render_human_block)
+from relightableavatar_tpu.renderer.tracing import STConfig as JSTConfig
+from relightableavatar_tpu.smpl.body_model import BodyModel
+from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+from relightableavatar_tpu_torch.renderer.sphere_tracing import render_human_block
+from relightableavatar_tpu_torch.weights import load_params
+
+MIN_PSNR = 50.0
+
+
+def _jax_golden_bundle():
+    """tests/test_golden.py:_render with the exact (Pallas-path) KNN."""
+    root = golden.REPO
+    model = BodyModel(os.path.join(root, 'fixtures/synthetic_body.npz'))
+    motion = dict(np.load(os.path.join(root, 'fixtures/synthetic_motion.npz')))
+    sh = motion['shapes'][0]
+    tv, tj, bA, _ = make_bigpose(model, sh)
+    ctx = make_frame_context(model, tv, tj, bA, motion['poses'][0],
+                             motion['Rh'][0], motion['Th'][0], sh)
+    cfg = j_default_cfg()
+    cfg.n_bones = model.n_bones
+    cfg.cond_dim = model.n_bones * 3
+    cfg.relighting = True
+    cfg.n_samples = 3
+    cfg.dist_th = 0.125
+    cfg.obj_lvis.dist_th = 0.125
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.tpu.bf16_mlp = False
+    cfg.tpu.knn_impl = 'pallas'
+    mcfg = j_anisdf.AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8)
+    # the fixture's arrays as a JAX pytree (the loaders agree:
+    # test_torch_context_weights.py)
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                          load_params(os.path.join(root, 'fixtures/synthetic_avatar_params.npz'),
+                                      device="cpu"))
+    tctx = {k: torch.as_tensor(np.array(v)) for k, v in ctx.items()}
+    ray_o, ray_d = golden.golden_bundle_rays(tctx)
+    P = len(ray_o)
+    lx, la = j_gen_light_xyz(2, 4, 10.0)
+    st_surf = JSTConfig.from_cfg(cfg.sphere_tracing)
+    st_obj = JSTConfig.from_cfg({**dict(cfg.sphere_tracing), **dict(cfg.obj_lvis)})
+    rcfg = JRelightRenderConfig(shadow_block=1024, distant_envmap=True)
+    with jax.default_matmul_precision('highest'):
+        out = j_render_human_block(
+            params, mcfg, ctx, jnp.asarray(ray_o), jnp.asarray(ray_d),
+            jnp.full(P, 0.8), jnp.full(P, 4.0), jnp.full((2, 4, 3), 0.6),
+            lx, la, 1.0 / jnp.sqrt(la / np.pi), st_surf, st_obj, rcfg, False)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def fixture_scene():
+    cfg = golden.fixture_cfg()
+    ctx, params, mcfg = golden.load_fixture(cfg, device="cpu")
+    return cfg, ctx, params, mcfg
+
+
+@pytest.fixture(scope="module")
+def bundles(fixture_scene):
+    _, ctx, params, mcfg = fixture_scene
+    port = golden.render_golden_bundle(ctx, params, mcfg, device="cpu")
+    return {k: v.numpy() for k, v in port.items()}, _jax_golden_bundle()
+
+
+def test_golden_bundle_vs_live_jax(bundles):
+    port, ref = bundles
+    assert set(port) == set(ref)
+    psnr = golden.psnr(port['rgb_map'], ref['rgb_map'])
+    print(f"port vs live JAX (exact KNN): {psnr:.2f} dB")
+    assert psnr >= MIN_PSNR
+    for key in ('acc_map', 'albedo_map', 'norm_map', 'shade_map', 'spec_map'):
+        assert golden.psnr(port[key], ref[key]) >= MIN_PSNR, key
+
+
+def test_golden_bundle_vs_stored_golden(bundles):
+    port, _ = bundles
+    img = port['rgb_map']
+    ref = np.load(golden.GOLDEN_RELIGHT_24)
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    psnr = golden.psnr(img, ref)
+    print(f"port vs tests/golden_relight_24px.npy: {psnr:.2f} dB")
+    assert psnr >= MIN_PSNR
+
+
+def test_renderer_blocks_equal_one_block(fixture_scene):
+    """Padding and ray blocking in SphereTracingRenderer.render are
+    output-identical to one render_human_block over the same rays."""
+    cfg, ctx, params, mcfg = fixture_scene
+    cfg = cfg.clone()
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.tpu.lvis_downscale = 8
+    cfg.tpu.ray_block = 16
+    batch, mab = golden.frame_batch(ctx, 16, 16)
+    n = int(mab.sum())
+    assert n > 16 and n % 16      # several blocks, the last one padded
+    renderer = SphereTracingRenderer(cfg, params, mcfg, device="cpu")
+    out = renderer.render(batch)
+    near = np.clip(batch.near, cfg.clip_near, None)
+    far = np.clip(batch.far, None, cfg.clip_far)
+    t = torch.as_tensor
+    one = render_human_block(params, mcfg, ctx, t(batch.ray_o), t(batch.ray_d), t(near),
+                             t(far), renderer.select_envmap(batch).probe,
+                             renderer.light_xyz, renderer.light_area,
+                             renderer.light_sharp, renderer.st_surf,
+                             renderer.st_obj, renderer.rcfg)
+    assert (out.acc_map > 0).any()
+    for key, v in one.items():
+        assert out[key].shape == v.shape, key
+        np.testing.assert_allclose(out[key].numpy(), v.numpy(), atol=1e-6, rtol=0,
+                                   err_msg=key)
+
+
+def test_check_bound_sdf_early_exit(fixture_scene):
+    """check_bound_sdf returns only rgb/acc (reference :577-587)."""
+    _, ctx, params, mcfg = fixture_scene
+    out = golden.render_golden_bundle(ctx, params, mcfg, device="cpu",
+                                      rcfg_extra={'check_bound_sdf': True})
+    assert set(out.keys()) == {'acc_map', 'rgb_map'}
+    img = out.rgb_map.numpy()
+    assert img.shape == (256, 3) and np.isfinite(img).all()
+    assert (img >= 0).all() and (img <= 1).all()
+    assert out.acc_map.min().item() == 1.0
+
+
+def test_check_termination_sdf_stats(fixture_scene):
+    _, ctx, params, mcfg = fixture_scene
+    out = golden.render_golden_bundle(ctx, params, mcfg, device="cpu",
+                                      rcfg_extra={'check_termination_sdf': True})
+    s, n = float(out.term_sdf_sum[0]), float(out.term_sdf_cnt[0])
+    assert np.isfinite(s) and s >= 0 and 0 < n <= 256 and s / n < 0.5
+
+
+UNPORTED = [('tpu', 'shadow_grid', 48), ('tpu', 'lvis_sweep', True),
+            ('tpu', 'surf_miss_skip', True), ('tpu', 'surf_grid_iters', 8),
+            ('tpu', 'shadow_compact', 0.5), ('tpu', 'shadow_skip_resd', True),
+            ('tpu', 'shadow_verts_sub', 4), ('tpu', 'knn_impl', 'grouped'),
+            ('tpu', 'knn_impl', 'xla'), ('tpu', 'frame_fuse', True),
+            ('tpu', 'volume_cull', 32), ('tpu', 'bf16_mlp', True),
+            ('tpu', 'bf16_act', True), (None, 'e_type', 'hash'),
+            (None, 'ablate_hdq_mode', 'world'), (None, 'vis_ground_shading', True)]
+
+
+@pytest.mark.parametrize("node,key,value", UNPORTED,
+                         ids=[f"{k}={v}" for _, k, v in UNPORTED])
+def test_unported_options_raise(fixture_scene, node, key, value):
+    cfg, _, params, _ = fixture_scene
+    cfg = cfg.clone()
+    (cfg[node] if node else cfg)[key] = value
+    with pytest.raises(NotImplementedError):
+        SphereTracingRenderer(cfg, params, AniSDFConfig.from_cfg(cfg), device="cpu")
