@@ -7,16 +7,24 @@ Phases, each printing one flushed line with its wall seconds:
           fails when torch finds no CUDA device
   build   nvcc of the top-3 KNN kernel into relightableavatar_tpu_torch/_build/,
           with ptxas' register and shared-memory lines
-  knn     the kernel against its plain PyTorch version on the card, at the
-          point counts the relight frame gives it, plus an exact-tie case;
+  knn     the kernel bit for bit against its plain PyTorch version on the
+          card at every boundary of its schedule (``knn_cases.knn_cases``:
+          point counts around a warp's and a task's points and the frame's
+          block sizes, 3 vertices, clouds around the resident capacity, a
+          duplicated cloud, points on the vertices, a cloud 1 km away);
           CUDA-event timings of runs of back-to-back calls (plain, kernel,
-          kernel, plain in turns) and the torch.cdist + topk yardstick
+          kernel, plain in turns) and the torch.cdist + topk yardstick at
+          P = 32768, and the kernel alone at each of the frame's block sizes
   golden  the fixture's 256-ray golden bundle, >= 50 dB against
           tests/golden_relight_24px.npy
   frame   one exact relight frame of fixture frame 0 (camera 0, 512x512,
           ``golden.frame_cfg()``) through SphereTracingRenderer.render, with
-          the kernel's launch count for that frame; then the same frame at
-          64x64 with the kernel and with the plain KNN, agreeing to >= 50 dB
+          the kernel's launch count for that frame, recording the KNN inputs
+          of the first call at each of its block sizes and of its first
+          smaller call; then the same frame at 64x64 with the kernel and with
+          the plain KNN, agreeing to >= 50 dB
+  knn-frame  the kernel bit for bit against the plain version on the
+          recorded frame inputs, and its time on each
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them.  Imports nothing but the port, torch, numpy and the standard
@@ -34,6 +42,9 @@ import numpy as np
 import torch
 
 from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.eval.knn_cases import (
+    FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
+    time_in_turns)
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
@@ -43,12 +54,12 @@ from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRender
 # tensor cores and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-KNN_OPS_PER_PAIR = 9        # 3 sub, 3 mul, 2 add, 1 compare
-KNN_P_SIZES = (8192, 24576, 32768, 8193, 1)   # ray block, band, shadow block, ragged
+# the kernel's fast path a pair: the filter |v|^2 - 2 p.v as 3 FMAs (2 operations
+# each, as the peak counts them) and 1 compare (an fminf of 4 vertices' values,
+# or the compare of their minimum); the exact d2 of the rare candidates is left out
+KNN_OPS_PER_PAIR = 7
 TIMED_P = 32768             # the shadow-ray block: most of the frame's launches
-NEAR_TIE = 1e-6
 REPS = 7                    # timed turns per version
-CALLS_PER_TIMING = 20       # back-to-back calls between one CUDA event pair
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -68,29 +79,8 @@ def nvidia_smi(query: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, calls: int = CALLS_PER_TIMING) -> float:
-    """Milliseconds per call of ``fn``: one CUDA event pair around ``calls``
-    back-to-back calls, divided by ``calls``."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / calls
-
-
-def compare_knn(d2k, ik, d2r, ir):
-    """(max |d2 diff|, share of points whose idx differ outside near ties,
-    share of points whose idx differ at near ties)."""
-    d2k, ik, d2r, ir = (t.cpu().numpy() for t in (d2k, ik, d2r, ir))
-    err = float(np.abs(d2k - d2r).max()) if d2k.size else 0.0
-    bad = (ik != ir).any(axis=1)
-    gaps = np.abs(np.diff(d2r, axis=1))
-    tie = (gaps <= NEAR_TIE * np.maximum(d2r[:, 1:], 1e-6)).any(axis=1)
-    n = max(len(ik), 1)
-    return err, float((bad & ~tie).sum() / n), float((bad & tie).sum() / n)
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 def knn_bound_ms(P: int, N: int) -> tuple[float, str]:
@@ -135,57 +125,46 @@ def main() -> None:
     # ---- knn
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    vnp = verts.cpu().numpy()
     max_err = 0.0
-    for P in KNN_P_SIZES:
-        pts_np = vnp[rng.integers(0, N, P)] + rng.normal(0, 0.03, (P, 3))
-        pts = torch.as_tensor(pts_np.astype(np.float32), device=dev)
-        d2k, ik = knn_cuda.knn_top3_cuda(pts, verts)
-        d2r, ir = knn_top3_reference(pts, verts)
+    for name, pts, vv in knn_cases(verts, rng):
+        d2k, ik = knn_cuda.knn_top3_cuda(pts, vv)
         torch.cuda.synchronize()
-        err, miss, tie_miss = compare_knn(d2k, ik, d2r, ir)
+        d2r, ir = knn_top3_reference(pts, vv)
+        check(ik.dtype == torch.int32 and d2k.shape == (pts.shape[0], 3),
+              f"{name}: kernel output type/shape")
+        err = max_abs_diff(d2k, d2r)
         max_err = max(max_err, err)
-        check(ik.dtype == torch.int32 and d2k.shape == (P, 3), "kernel output type/shape")
-        check(err <= 1e-6, f"P={P}: d2 differs from the plain version by {err}")
-        check(miss == 0.0, f"P={P}: idx differs outside near ties at {miss:.2e} of points")
-        check(tie_miss <= 1e-4, f"P={P}: idx differs at near ties at {tie_miss:.2e}")
-        print(f"[knn] P={P}: max |d2 - plain| {err:.3e}, idx differing "
-              f"{miss:.2e} (+{tie_miss:.2e} at near ties)", flush=True)
-    # exact ties: every vertex twice; the lower index must win
-    vdup = torch.cat([verts, verts]).contiguous()
-    pts = torch.as_tensor((vnp[rng.integers(0, N, 4096)]
-                           + rng.normal(0, 0.03, (4096, 3))).astype(np.float32), device=dev)
-    d2k, ik = knn_cuda.knn_top3_cuda(pts, vdup)
-    d2r, ir = knn_top3_reference(pts, vdup)
-    check(torch.equal(ik, ir) and torch.equal(d2k, d2r), "tie case differs from plain")
-    check(bool((ik[:, 0] < N).all()) and bool((ik[:, 1] == ik[:, 0] + N).all()),
-          "exact ties did not go to the lowest index")
-    print("[knn] duplicated vertices: ties resolved to the lowest index, "
-          "identical to the plain version", flush=True)
+        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
+              f"{name}: differs from the plain version (max |d2 diff| {err:.3e}, "
+              f"{int((ik != ir).any(dim=1).sum())} points with other indices)")
+        if name == "duplicated":
+            check(bool((ik[:, 0] < N).all()) and bool((ik[:, 1] == ik[:, 0] + N).all()),
+                  "exact ties did not go to the lowest index")
+        print(f"[knn] {name}: {pts.shape[0]} points, {vv.shape[0]} vertices: d2 and "
+              "idx equal to the plain version", flush=True)
 
-    pts_np = vnp[rng.integers(0, N, TIMED_P)] + rng.normal(0, 0.03, (TIMED_P, 3))
-    pts = torch.as_tensor(pts_np.astype(np.float32), device=dev)
+    pts = synthetic_points(verts, TIMED_P, rng)
     kernel_fn = lambda: knn_cuda.knn_top3_cuda(pts, verts)
     plain_fn = lambda: knn_top3_reference(pts, verts)
     library_fn = lambda: torch.cdist(pts, verts).topk(3, dim=1, largest=False)
-    for fn in (kernel_fn, plain_fn, library_fn):
-        fn()
-    torch.cuda.synchronize()
-    plain_t, kern_t, lib_t = [], [], []
-    for _ in range(REPS):
-        plain_t.append(cuda_ms(plain_fn))
-        kern_t += [cuda_ms(kernel_fn), cuda_ms(kernel_fn)]
-        plain_t.append(cuda_ms(plain_fn))
-        lib_t.append(cuda_ms(library_fn))
-    kern_ms, plain_ms, lib_ms = (statistics.median(t) for t in (kern_t, plain_t, lib_t))
+    times = time_in_turns({"plain": plain_fn, "kernel": kernel_fn}, REPS)
+    kern_ms, plain_ms = times["kernel"], times["plain"]
+    library_fn()
+    lib_ms = statistics.median(cuda_ms(library_fn) for _ in range(REPS))
     _, ik = kernel_fn()
     lib_idx = library_fn().indices
     lib_agree = float((lib_idx.to(torch.int32) == ik).all(dim=1).float().mean())
     bound_ms, bound_by = knn_bound_ms(TIMED_P, N)
-    phase("knn", t0, f"P={TIMED_P} N={N}, ms per call over runs of "
-          f"{CALLS_PER_TIMING} calls: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    ms_by_P = {}
+    for P in FRAME_BLOCKS:
+        p = synthetic_points(verts, P, rng)
+        ms_by_P[str(P)] = time_in_turns({"kernel": lambda p=p: knn_cuda.knn_top3_cuda(p, verts)},
+                                        REPS)["kernel"]
+    phase("knn", t0, f"P={TIMED_P} N={N}, ms per call over runs of back-to-back "
+          f"calls: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"cdist+topk {lib_ms:.4f} ms (top-3 sets equal on {lib_agree:.4%} of points), "
-          f"bound {bound_ms:.4f} ms by {bound_by}")
+          f"bound {bound_ms:.4f} ms by {bound_by}; kernel at the frame's block sizes "
+          + ", ".join(f"P={P} {ms:.4f} ms" for P, ms in ms_by_P.items()))
 
     # ---- golden
     t0 = time.perf_counter()
@@ -203,12 +182,14 @@ def main() -> None:
     batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    knn_cuda.KNN_TOP3.launches = 0
-    t1 = time.perf_counter()
-    res = renderer.render(batch)
-    torch.cuda.synchronize()
-    frame_s = time.perf_counter() - t1
-    launches = knn_cuda.KNN_TOP3.launches
+    frame_inputs: dict = {}
+    with record_knn_inputs(frame_inputs):
+        knn_cuda.KNN_TOP3.launches = 0
+        t1 = time.perf_counter()
+        res = renderer.render(batch)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t1
+        launches = knn_cuda.KNN_TOP3.launches
     check(launches > 0, "the frame did not launch the KNN kernel")
     n_fg = int(mab.sum())
     rgb, acc = res.rgb_map, res.acc_map
@@ -239,6 +220,22 @@ def main() -> None:
     phase("frame", t0, f"64x64 kernel vs plain KNN: {f_psnr:.2f} dB "
           f"(max |diff| {float(np.abs(img_k - img_p).max()):.3e})")
 
+    # ---- the kernel on the frame's own inputs
+    t0 = time.perf_counter()
+    check(set(FRAME_BLOCKS) <= set(frame_inputs), "the frame made no call at some block size")
+    frame_inputs_ms = {}
+    for key, (p, vv) in sorted(frame_inputs.items(), key=lambda kv: str(kv[0])):
+        name = frame_input_name(key, p)
+        d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+        d2r, ir = knn_top3_reference(p, vv)
+        max_err = max(max_err, max_abs_diff(d2k, d2r))
+        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
+              f"frame input P={name}: differs from the plain version")
+        frame_inputs_ms[name] = time_in_turns(
+            {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    phase("knn-frame", t0, "the frame's own KNN inputs: d2 and idx equal to the plain "
+          "version; kernel " + ", ".join(f"P={k} {ms:.4f} ms" for k, ms in frame_inputs_ms.items()))
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "knn_top3",
@@ -252,6 +249,8 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
+        "ms_by_P": ms_by_P,
+        "frame_inputs_ms": frame_inputs_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -65,9 +65,13 @@ def build_library(source: str = SOURCE, build_dir: str = BUILD_DIR):
 
 
 class KnnTop3Kernel:
-    """The loaded kernel library and its launch count."""
+    """The loaded kernel library and its launch count.  ``source`` may name
+    another file with the same C interface (an earlier version of the
+    kernel, to time beside this one); it is built into ``build_dir``."""
 
-    def __init__(self):
+    def __init__(self, source: str = SOURCE, build_dir: str = BUILD_DIR):
+        self.source = source
+        self.build_dir = build_dir
         self.launches = 0
         self.build_seconds = 0.0
         self.build_log = ""
@@ -78,7 +82,8 @@ class KnnTop3Kernel:
     def load(self):
         """Build (if needed) and bind the library; idempotent."""
         if self._fn is None:
-            self.path, self.build_seconds, self.build_log = build_library()
+            self.path, self.build_seconds, self.build_log = build_library(
+                self.source, self.build_dir)
             lib = ctypes.CDLL(self.path)
             fn = lib.knn_top3_f32
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

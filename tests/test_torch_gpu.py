@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
@@ -29,15 +30,15 @@ def scene(cuda):
     return cfg, ctx, params, mcfg
 
 
-@pytest.mark.parametrize("P", [1, 31, 33, 8192, 8193, 32768])
-def test_kernel_equals_plain_version(scene, P):
+@pytest.fixture(scope="module")
+def cases(scene):
     _, ctx, _, _ = scene
-    verts = ctx["pverts"]
-    rng = np.random.default_rng(P)
-    vnp = verts.cpu().numpy()
-    pts = torch.as_tensor((vnp[rng.integers(0, len(vnp), P)]
-                           + rng.normal(0, 0.03, (P, 3))).astype(np.float32),
-                          device=verts.device)
+    return {name: (p, v) for name, p, v in knn_cases(ctx["pverts"], np.random.default_rng(1))}
+
+
+@pytest.mark.parametrize("case", KNN_CASE_NAMES)
+def test_kernel_equals_plain_version(cases, case):
+    pts, verts = cases[case]
     n0 = knn_cuda.KNN_TOP3.launches
     d2, idx = knn_cuda.knn_top3_cuda(pts, verts)
     torch.cuda.synchronize()
@@ -50,7 +51,7 @@ def test_kernel_equals_plain_version(scene, P):
 def test_kernel_ragged_vertex_count_and_ties(scene):
     _, ctx, _, _ = scene
     verts = ctx["pverts"]
-    vdup = torch.cat([verts[:2049], verts[:2049]]).contiguous()   # N over one tile
+    vdup = torch.cat([verts[:2049], verts[:2049]]).contiguous()   # exact ties, resident
     pts = verts[::7].contiguous()
     d2, idx = knn_cuda.knn_top3_cuda(pts, vdup)
     rd2, ridx = knn_top3_reference(pts, vdup)
