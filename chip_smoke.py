@@ -23,8 +23,19 @@ Phases, each printing one flushed line with its wall seconds:
           of the first call at each of its block sizes and of its first
           smaller call; then the same frame at 64x64 with the kernel and with
           the plain KNN, agreeing to >= 50 dB
+  benchstack  the 64x64 bench-stack frame (48-node SDF grid, slice sweep,
+          2x-coarser visibility, distant envmap) >= 45 dB against
+          tests/golden_benchstack_64px.npy; the same frame with the miss skip
+          on, within 1e-5 of it; the sweep volume of that frame's grid on the
+          card against the same sweep on the CPU, within 1e-6 relative
+  accel-frame  bench.py's relight_512_accel_skip frame of the fixture
+          (``golden.accel_frame_cfg()``: 96-node grid, slice sweep, miss
+          skip, bfloat16 MLPs) through SphereTracingRenderer.render, with its
+          launch count, recording the grid bake's first KNN input; then once
+          more with a device sync after each stage for the stage times
   knn-frame  the kernel bit for bit against the plain version on the
-          recorded frame inputs, and its time on each
+          recorded frame inputs (the bake's 180,224 points included), and
+          its time on each
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them.  Imports nothing but the port, torch, numpy and the standard
@@ -45,6 +56,7 @@ from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
     time_in_turns)
+from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
@@ -60,6 +72,8 @@ PEAK_BYTES = 3.35e12
 KNN_OPS_PER_PAIR = 7
 TIMED_P = 32768             # the shadow-ray block: most of the frame's launches
 REPS = 7                    # timed turns per version
+SWEEP_RTOL = 1e-6           # card vs CPU sweep: gathers and elementwise ops only
+SKIP_ATOL = 1e-5            # miss skip on vs off (tests/test_golden.py:194)
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -200,6 +214,7 @@ def main() -> None:
     check(bool((acc >= 0).all() and (acc <= 1).all()), "acc outside [0, 1]")
     hits = int((acc > 0).sum())
     check(hits > 0, "the frame hit nothing")
+    exact_rgb = rgb.cpu().numpy()
     phase("frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE}: {n_fg} rays in the body's bounds, "
           f"{hits} hit; render {frame_s:.3f} s = {n_fg / frame_s:.0f} rays/s; "
           f"KNN kernel launches {launches}; peak memory "
@@ -220,12 +235,75 @@ def main() -> None:
     phase("frame", t0, f"64x64 kernel vs plain KNN: {f_psnr:.2f} dB "
           f"(max |diff| {float(np.abs(img_k - img_p).max()):.3e})")
 
+    # ---- the bench stack at 64x64
+    t0 = time.perf_counter()
+    img, n64 = golden.render_benchstack_64(device="cuda")
+    check(img.shape == (n64, 3) and np.isfinite(img).all(), "bench-stack frame shape/finite")
+    ok, b_psnr = golden.check_golden(img)
+    check(ok and b_psnr >= 45.0, f"bench stack vs golden {b_psnr} dB < 45 dB")
+    skip_img, _ = golden.render_benchstack_64(device="cuda",
+                                              cfg_overrides={'surf_miss_skip': True})
+    skip_diff = float(np.abs(skip_img - img).max())
+    check(skip_diff <= SKIP_ATOL, f"miss skip on vs off: max |diff| {skip_diff:.3e}")
+    bs = SphereTracingRenderer(golden.benchstack_cfg(), params, mcfg, device="cuda")
+    gbox = bs.grid_box(ctx)
+    grid = bs.bake_grid(ctx, gbox, packed=False)
+    vol = bs.sweep_volume(grid, gbox)
+    vol_cpu = bs.sweep_volume(grid.cpu(), gbox.cpu())
+    sweep_err = float(((vol.cpu() - vol_cpu).abs() / vol_cpu.abs().clamp(min=1.0)).max())
+    check(bool(torch.isfinite(vol).all()) and sweep_err <= SWEEP_RTOL,
+          f"sweep on the card vs the CPU: max relative diff {sweep_err:.3e}")
+    phase("benchstack", t0, f"64x64 bench stack vs tests/golden_benchstack_64px.npy: "
+          f"{b_psnr:.2f} dB; miss skip on vs off max |diff| {skip_diff:.3e}; sweep volume "
+          f"{tuple(vol.shape)} on the card vs the CPU: max relative diff {sweep_err:.3e}")
+
+    # ---- the accelerated frame (the second main path)
+    t0 = time.perf_counter()
+    cfg_a = golden.accel_frame_cfg()
+    _, params_a, mcfg_a = golden.load_fixture(cfg_a, device="cuda")
+    renderer_a = SphereTracingRenderer(cfg_a, params_a, mcfg_a, device="cuda")
+    lattice = renderer_a.grid_resolution(renderer_a.grid_box(ctx))
+    bake_P = bake_chunk(int(np.prod(lattice)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_knn_inputs(frame_inputs, sizes=(bake_P,), tail=False):
+        knn_cuda.KNN_TOP3.launches = 0
+        t1 = time.perf_counter()
+        res_a = renderer_a.render(batch)
+        torch.cuda.synchronize()
+        accel_s = time.perf_counter() - t1
+        launches_accel = knn_cuda.KNN_TOP3.launches
+    check(launches_accel > 0, "the accelerated frame did not launch the KNN kernel")
+    check(bake_P in frame_inputs, "the grid bake made no KNN call of its chunk size")
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    rgb_a, acc_a = res_a.rgb_map, res_a.acc_map
+    check(rgb_a.shape == (n_fg, 3) and acc_a.shape == (n_fg,), "accelerated frame output shapes")
+    for k, v in res_a.items():
+        if isinstance(v, torch.Tensor):
+            check(bool(torch.isfinite(v).all()), f"accelerated frame {k} not finite")
+    check(bool((acc_a >= 0).all() and (acc_a <= 1).all()), "accelerated frame acc outside [0, 1]")
+    hits_a = int((acc_a > 0).sum())
+    check(hits_a > 0, "the accelerated frame hit nothing")
+    a_psnr = golden.psnr(rgb_a.cpu().numpy(), exact_rgb)
+    renderer_a.time_stages = True
+    renderer_a.render(batch)
+    st = renderer_a.last_frame
+    phase("accel-frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} relight_512_accel_skip: "
+          f"{n_fg} rays, {hits_a} hit; render {accel_s:.3f} s = {n_fg / accel_s:.0f} rays/s "
+          f"(first call); KNN kernel launches {launches_accel}; grid lattice {lattice}, "
+          f"bake calls of {bake_P} points; with a sync after each stage: bake "
+          f"{st.bake_s * 1e3:.1f} ms, sweep {st.sweep_s * 1e3:.1f} ms, miss march "
+          f"{st.march_s * 1e3:.1f} ms, ray blocks {st.blocks_s * 1e3:.1f} ms, assembly "
+          f"{st.assemble_s * 1e3:.1f} ms; ray blocks skipped by the miss skip "
+          f"{st.blocks - st.blocks_rendered} of {st.blocks}; peak memory {peak_a:.2f} GiB; "
+          f"rgb vs the exact frame {a_psnr:.2f} dB (lossy by design)")
+
     # ---- the kernel on the frame's own inputs
     t0 = time.perf_counter()
     check(set(FRAME_BLOCKS) <= set(frame_inputs), "the frame made no call at some block size")
     frame_inputs_ms = {}
     for key, (p, vv) in sorted(frame_inputs.items(), key=lambda kv: str(kv[0])):
-        name = frame_input_name(key, p)
+        name = frame_input_name(key, p) + (" bake" if key == bake_P else "")
         d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
         d2r, ir = knn_top3_reference(p, vv)
         max_err = max(max_err, max_abs_diff(d2k, d2r))
@@ -243,6 +321,7 @@ def main() -> None:
         "source": "relightableavatar_tpu_torch/csrc/knn_top3.cu",
         "replaces": "relightableavatar_tpu/ops/pallas_knn.py:28",
         "launches": launches,
+        "launches_accel": launches_accel,
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,

@@ -23,6 +23,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "device; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # the bfloat16 MLP path accumulates in float32, as the JAX package's
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -1,10 +1,12 @@
-"""The fixture avatar and its golden ray bundle, for the port's tests and
-``chip_smoke.py`` (counterpart of ``relightableavatar_tpu/eval/golden.py``
-and of ``tests/test_golden.py:_render``).
+"""The fixture avatar, its golden renders and the frames the port is run
+at, for the port's tests, ``chip_smoke.py`` and ``eval/profile_frame.py``
+(counterpart of ``relightableavatar_tpu/eval/golden.py`` and of
+``tests/test_golden.py:_render``).
 
 Everything is read from tracked files under ``fixtures/`` and ``tests/``:
 the distilled avatar's parameters, the SMPL-H-style body model and motion,
-and the stored 256-ray golden ``tests/golden_relight_24px.npy``.
+the stored 256-ray golden ``tests/golden_relight_24px.npy`` and the 64px
+bench-stack golden ``tests/golden_benchstack_64px.npy``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from relightableavatar_tpu_torch.weights import load_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GOLDEN_RELIGHT_24 = os.path.join(REPO, 'tests', 'golden_relight_24px.npy')
-FRAME_SIZE = 512    # width and height of the exact relight frame of frame_cfg()
+GOLDEN_BENCHSTACK_64 = os.path.join(REPO, 'tests', 'golden_benchstack_64px.npy')
+FRAME_SIZE = 512    # width and height of the relight frames of frame_cfg() and accel_frame_cfg()
 
 
 def fixture_cfg():
@@ -56,6 +59,77 @@ def frame_cfg():
     cfg.obj_lvis.iter = 4
     cfg.env_h, cfg.env_w = 16, 32
     return cfg
+
+
+def bench_stack(cfg, shadow_grid: int):
+    """Turn on the JAX bench's shading acceleration stack
+    (``bench.py:178-188``, ``_accel_knobs(on=True)``): visibility on the
+    2x-coarser light grid from a slice sweep of a ``shadow_grid`` SDF grid,
+    looked up at the surface, and the distant-light envmap shortcut.  The
+    camera trace stays exact."""
+    cfg.tpu.lvis_downscale = 2
+    cfg.tpu.shadow_grid = shadow_grid
+    cfg.tpu.lvis_sweep = True
+    cfg.tpu.lvis_query_offset = 0.0
+    cfg.tpu.distant_envmap = True
+    cfg.tpu.surf_grid_iters = 0
+    cfg.tpu.surf_exact_iters = 0
+    return cfg
+
+
+def accel_frame_cfg():
+    """Config of ``bench.py``'s ``relight_512_accel_skip`` frame on the
+    fixture avatar: :func:`frame_cfg` with the acceleration stack at a
+    96-node grid, the frame-global miss skip and bfloat16 MLPs
+    (``bench.py:107,401``), ``ray_block`` 8192."""
+    cfg = bench_stack(frame_cfg(), 96)
+    cfg.tpu.surf_miss_skip = True
+    cfg.tpu.bf16_mlp = True
+    cfg.tpu.ray_block = 8192
+    return cfg
+
+
+def benchstack_cfg(cfg_overrides: dict | None = None):
+    """Config of the 64px bench-stack golden
+    (``relightableavatar_tpu/eval/golden.py:45-65``): the fixture avatar in
+    float32 with 6 surface / 2 shadow iterations, ``ray_block`` 1024 and the
+    acceleration stack at a 48-node grid; ``cfg_overrides`` are further
+    ``cfg.tpu`` keys."""
+    cfg = bench_stack(fixture_cfg(), 48)
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.tpu.ray_block = 1024
+    for k, v in (cfg_overrides or {}).items():
+        cfg.tpu[k] = v
+    return cfg
+
+
+def render_benchstack_64(device="cuda", cfg_overrides: dict | None = None,
+                         root: str = REPO):
+    """(img (N, 3) float32 numpy, n_fg_rays): the 64x64 bench-stack frame
+    (fixture frame 0, camera 0) through ``SphereTracingRenderer.render``.
+    The KNN is the exact top 3 (``knn_impl='pallas'``); the stored golden
+    was made with the JAX package's default KNN selection, so it is held
+    by PSNR (:func:`check_golden`)."""
+    from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+    cfg = benchstack_cfg(cfg_overrides)
+    ctx, params, mcfg = load_fixture(cfg, device=device, root=root)
+    batch, mab = frame_batch(ctx, 64, 64)
+    out = SphereTracingRenderer(cfg, params, mcfg, device=device).render(batch)
+    return out.rgb_map.cpu().numpy().astype(np.float32), int(mab.sum())
+
+
+def check_golden(img: np.ndarray, golden_path: str = GOLDEN_BENCHSTACK_64,
+                 min_psnr: float = 45.0):
+    """(ok, psnr vs the stored golden, or None when the file is absent)
+    (``relightableavatar_tpu/eval/golden.py:89-99``)."""
+    if not os.path.exists(golden_path):
+        return False, None
+    ref = np.load(golden_path)
+    if img.shape != ref.shape:
+        return False, 0.0
+    p = psnr(img, ref)
+    return bool(p > min_psnr), p
 
 
 def load_fixture(cfg=None, frame: int = 0, device="cuda", root: str = REPO):
@@ -87,10 +161,12 @@ def golden_bundle_rays(ctx, P: int = 256):
     return ray_o, ray_d
 
 
-def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None):
+def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None,
+                         shadow_sdf_grid=None, lvis_volume=None):
     """The 256-ray bundle of ``tests/test_golden.py:_render`` through the
     port's ``render_human_block``: 6 surface / 2 shadow iterations, a 2x4
-    light grid, a constant 0.6 probe sampled at texel centres."""
+    light grid, a constant 0.6 probe sampled at texel centres.  The grid
+    and volume go to ``render_human_block`` as they are."""
     cfg = fixture_cfg()
     cfg.sphere_tracing.iter = 6
     cfg.obj_lvis.iter = 2
@@ -106,7 +182,8 @@ def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None):
     return render_human_block(
         params, mcfg, ctx, t(ray_o), t(ray_d),
         torch.full((P,), 0.8, device=device), torch.full((P,), 4.0, device=device),
-        torch.full((2, 4, 3), 0.6, device=device), lx, la, ls, st_surf, st_obj, rcfg)
+        torch.full((2, 4, 3), 0.6, device=device), lx, la, ls, st_surf, st_obj, rcfg,
+        shadow_sdf_grid=shadow_sdf_grid, lvis_volume=lvis_volume)
 
 
 def frame_batch(ctx, H: int, W: int, cam: int = 0):

@@ -61,15 +61,15 @@ def knn_cases(verts: torch.Tensor, rng) -> list[tuple[str, torch.Tensor, torch.T
 
 
 @contextlib.contextmanager
-def record_knn_inputs(store: dict):
+def record_knn_inputs(store: dict, sizes=FRAME_BLOCKS, tail: bool = True):
     """While active, the HDQ's KNN calls go through unchanged, and ``store``
-    gets a copy of (pts, verts) of the first call at each of
-    ``FRAME_BLOCKS`` and of the first call at any other size ("tail")."""
+    gets a copy of (pts, verts) of the first call at each of ``sizes`` and,
+    with ``tail``, of the first call at any other size ("tail")."""
     dispatch = anisdf.knn_top3
 
     def recording(pts, verts):
-        key = pts.shape[0] if pts.shape[0] in FRAME_BLOCKS else "tail"
-        if key not in store:
+        key = pts.shape[0] if pts.shape[0] in sizes else "tail"
+        if key not in store and (tail or key != "tail"):
             store[key] = (pts.clone(), verts.clone())
         return dispatch(pts, verts)
 

@@ -1,17 +1,24 @@
-"""Where the time of one exact relight frame goes on the card.
+"""Where the time of the exact and the accelerated relight frame goes on the
+card.
 
     python -m relightableavatar_tpu_torch.eval.profile_frame
 
-Renders the frame of ``chip_smoke.py``'s frame phase (fixture frame 0,
-camera 0, ``golden.FRAME_SIZE`` squared, ``golden.frame_cfg()``) once to warm
-up, ``REPS`` times timed, then once more under ``torch.profiler`` with CPU
-and CUDA activities.  Prints the timed frames' wall times, the union of the
-profiled frame's device activity (its busy time) as a share of the median
-unprofiled wall time, of the profiled wall time and of the span from first
-to last device activity, device time by kernel category, and the top
-kernels' device time and launch counts.  The profiler's host-side tracing
-slows the host, so the share of the unprofiled frame is the one to read.
-Needs a CUDA device.
+Renders two frames of fixture frame 0, camera 0, ``golden.FRAME_SIZE``
+squared: the exact frame of ``chip_smoke.py``'s frame phase
+(``golden.frame_cfg()``) and ``bench.py``'s ``relight_512_accel_skip`` frame
+(``golden.accel_frame_cfg()``: SDF grid bake, slice sweep, miss skip,
+bfloat16 MLPs).  Each is rendered once to warm up; then ``REPS`` timed
+frames of each in turns (exact, accel, accel, exact, ...); then one frame
+of each with a device sync after every stage (the accelerated frame's
+bake, sweep, miss march, ray blocks and assembly); then one frame of each
+under ``torch.profiler`` with CPU and CUDA activities.  Prints per frame
+the timed frames' wall times, the union of the profiled frame's device
+activity (its busy time) as a share of the median unprofiled wall time, of
+the profiled wall time and of the span from first to last device activity,
+the device launches and KNN kernel launches, device time by kernel
+category, and the top kernels' device time and launch counts.  The
+profiler's host-side tracing slows the host, so the share of the
+unprofiled frame is the one to read.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
 
-REPS = 3    # unprofiled timed frames
+REPS = 3    # unprofiled timed frames of each
 TOP = 15    # kernels listed by device time
 
 
@@ -56,8 +63,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if "knn_top3" in low:
         return "knn_top3 kernel"
-    if "gemm" in low or "cutlass" in low or "cublas" in low:
-        return "matmul (cuBLAS)"
+    if "gemm" in low or "cutlass" in low or "cublas" in low or "xmma" in low:
+        return "matmul bf16 (cuBLAS)" if "bf16" in low else "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("index", "gather", "scatter", "nonzero", "where")):
@@ -65,6 +72,52 @@ def _category(name: str) -> str:
     if "reduce" in low or "sum" in low:
         return "reductions"
     return "elementwise and other"
+
+
+def _wall(renderer, batch) -> float:
+    t0 = time.perf_counter()
+    renderer.render(batch)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _report(name, renderer, batch, n_rays, walls) -> None:
+    """Profile one frame of ``renderer`` and print its numbers."""
+    knn_cuda.KNN_TOP3.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _wall(renderer, batch)
+    launches = knn_cuda.KNN_TOP3.launches
+    events = _device_events(prof)
+    if not events:
+        raise SystemExit("the profiler recorded no device activity")
+    first = min(s for _, s, _ in events)
+    last = max(e for _, _, e in events)
+    busy_s = _busy_us([(s, e) for _, s, e in events]) / 1e6
+    per_name: dict[str, list] = {}
+    for ev_name, s, e in events:
+        acc = per_name.setdefault(ev_name, [0.0, 0])
+        acc[0] += e - s
+        acc[1] += 1
+    rows = [(n, us, count) for n, (us, count) in per_name.items()]
+    device_s = sum(us for _, us, _ in rows) / 1e6
+    span_s = (last - first) / 1e6
+    unprof_s = statistics.median(walls)
+    print(f"[{name}] frame {golden.FRAME_SIZE}x{golden.FRAME_SIZE}: {n_rays} rays; wall "
+          "times without the profiler: " + ", ".join(f"{w:.3f} s" for w in walls), flush=True)
+    print(f"[{name}] device busy {busy_s:.3f} s = {busy_s / unprof_s:.1%} of the median "
+          f"unprofiled wall time {unprof_s:.3f} s, {busy_s / wall:.1%} of the wall time "
+          f"under the profiler {wall:.3f} s, {busy_s / span_s:.1%} of the first-to-last "
+          f"device activity {span_s:.3f} s; {len(events)} device launches; KNN kernel "
+          f"launches {launches}", flush=True)
+    cats: dict[str, float] = {}
+    for ev_name, us, _ in rows:
+        cats[_category(ev_name)] = cats.get(_category(ev_name), 0.0) + us
+    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"[{name}]   {cat:28s} {us / 1e3:10.3f} ms  {us / 1e6 / device_s:6.1%} "
+              "of device time")
+    print(f"[{name}] top {TOP} kernels by device time:")
+    for ev_name, us, count in sorted(rows, key=lambda r: -r[1])[:TOP]:
+        print(f"[{name}]   {us / 1e3:10.3f} ms  x{count:6d}  {ev_name[:90]}")
 
 
 def main() -> None:
@@ -75,58 +128,29 @@ def main() -> None:
                          text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
 
-    cfg = golden.frame_cfg()
-    ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
-    renderer = SphereTracingRenderer(cfg, params, mcfg, device="cuda")
-    batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
-    renderer.render(batch)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        renderer.render(batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    print("frame wall times without the profiler: "
-          + ", ".join(f"{w:.3f} s" for w in walls), flush=True)
-
-    knn_cuda.KNN_TOP3.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        renderer.render(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = knn_cuda.KNN_TOP3.launches
-
-    events = _device_events(prof)
-    if not events:
-        raise SystemExit("the profiler recorded no device activity")
-    first = min(s for _, s, _ in events)
-    last = max(e for _, _, e in events)
-    busy_s = _busy_us([(s, e) for _, s, e in events]) / 1e6
-    per_name: dict[str, list] = {}
-    for name, s, e in events:
-        acc = per_name.setdefault(name, [0.0, 0])
-        acc[0] += e - s
-        acc[1] += 1
-    rows = [(name, us, count) for name, (us, count) in per_name.items()]
-    device_s = sum(us for _, us, _ in rows) / 1e6
-    span_s = (last - first) / 1e6
-    unprof_s = statistics.median(walls)
-    print(f"frame {golden.FRAME_SIZE}x{golden.FRAME_SIZE}: {int(mab.sum())} rays; "
-          f"device busy {busy_s:.3f} s = {busy_s / unprof_s:.1%} of the median "
-          f"unprofiled wall time {unprof_s:.3f} s, {busy_s / wall:.1%} of the "
-          f"wall time under the profiler {wall:.3f} s, {busy_s / span_s:.1%} of "
-          f"the first-to-last device activity {span_s:.3f} s; {len(events)} "
-          f"device launches; KNN kernel launches {launches}", flush=True)
-    cats: dict[str, float] = {}
-    for name, us, _ in rows:
-        cats[_category(name)] = cats.get(_category(name), 0.0) + us
-    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:28s} {us / 1e3:10.3f} ms  {us / 1e6 / device_s:6.1%} of device time")
-    print(f"top {TOP} kernels by device time:")
-    for name, us, count in sorted(rows, key=lambda r: -r[1])[:TOP]:
-        print(f"  {us / 1e3:10.3f} ms  x{count:6d}  {name[:90]}")
+    frames = {}
+    for name, cfg in (("exact", golden.frame_cfg()), ("accel", golden.accel_frame_cfg())):
+        ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
+        renderer = SphereTracingRenderer(cfg, params, mcfg, device="cuda")
+        batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+        _wall(renderer, batch)
+        frames[name] = (renderer, batch, int(mab.sum()), [])
+    order = list(frames)
+    for rep in range(REPS):
+        turn = order if rep % 2 == 0 else order[::-1]
+        for name in turn:
+            renderer, batch, _, walls = frames[name]
+            walls.append(_wall(renderer, batch))
+    for name, (renderer, batch, _, _) in frames.items():
+        renderer.time_stages = True
+        _wall(renderer, batch)
+        renderer.time_stages = False
+        print(f"[{name}] with a device sync after each stage: " + ", ".join(
+            f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in renderer.last_frame.items()
+            if k.endswith('_s')) + f"; ray blocks rendered {renderer.last_frame.blocks_rendered}"
+            f" of {renderer.last_frame.blocks}", flush=True)
+    for name, (renderer, batch, n_rays, walls) in frames.items():
+        _report(name, renderer, batch, n_rays, walls)
 
 
 if __name__ == "__main__":

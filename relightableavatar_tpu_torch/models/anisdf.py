@@ -2,9 +2,10 @@
 warp with KNN skinning, the hierarchical distance query (HDQ) world SDF,
 and the network forward with autodiff normals.
 
-Only the exact path is ported: the KNN is always the exact top 3
-(``ops/knn.py``), MLPs run in float32, and the options this slice does not
-port raise in :meth:`AniSDFConfig.from_cfg` instead of being ignored.
+The KNN is always the exact top 3 (``ops/knn.py``); MLPs run in float32 or,
+under ``tpu.bf16_mlp`` / ``tpu.bf16_act``, with bfloat16 matmuls
+(``ops/mlp.py``).  The options not ported raise in
+:meth:`AniSDFConfig.from_cfg` instead of being ignored.
 """
 from __future__ import annotations
 
@@ -47,13 +48,11 @@ class AniSDFConfig(NamedTuple):
     env_r: float = 10.0
     envmap_upscale: int = 2
     achro_light: bool = False
+    bf16: bool = False          # bfloat16 matmuls, float32 accumulation
+    bf16_act: bool = False      # with bf16: bfloat16 hidden activations
 
     @classmethod
     def from_cfg(cls, cfg) -> "AniSDFConfig":
-        if cfg.tpu.bf16_mlp or cfg.tpu.bf16_act:
-            raise NotImplementedError(
-                "tpu.bf16_mlp / tpu.bf16_act: the port runs float32 MLPs only; "
-                "set both to False")
         if cfg.tpu.knn_impl not in ('auto', 'pallas'):
             raise NotImplementedError(
                 f"tpu.knn_impl={cfg.tpu.knn_impl!r}: the port has the exact "
@@ -89,6 +88,8 @@ class AniSDFConfig(NamedTuple):
             env_r=cfg.env_r,
             envmap_upscale=cfg.envmap_upscale,
             achro_light=cfg.achro_light,
+            bf16=bool(cfg.tpu.bf16_mlp),
+            bf16_act=bool(cfg.tpu.bf16_act),
         )
 
 
@@ -106,12 +107,14 @@ def beta_of(params: dict) -> torch.Tensor:
 # ---------------------------------------------------------------- sub-networks
 def residuals(params, mcfg: AniSDFConfig, bpts, cond):
     emb = positional_encoding(bpts, mcfg.xyz_res)
-    net = mlp_apply(params["resd"], torch.cat([emb, cond], dim=-1))
+    net = mlp_apply(params["resd"], torch.cat([emb, cond], dim=-1),
+                    bf16=mcfg.bf16, bf16_act=mcfg.bf16_act)
     return torch.tanh(net) * mcfg.resd_limit
 
 
 def sdf_feat(params, mcfg: AniSDFConfig, cpts):
-    out = ssdf_apply(params["sdf"], positional_encoding(cpts, mcfg.sdf_res))
+    out = ssdf_apply(params["sdf"], positional_encoding(cpts, mcfg.sdf_res),
+                     bf16=mcfg.bf16, bf16_act=mcfg.bf16_act)
     return out[..., :1], out[..., 1:]
 
 
@@ -120,21 +123,24 @@ def render_rgb(params, mcfg: AniSDFConfig, view, grad, feat, cond):
     emb = positional_encoding(view, mcfg.view_res)
     x = torch.cat([emb, grad, feat], dim=-1)
     p = params["rgb"]
-    x = torch.relu(linear_apply(p["l0"], x))
-    x = torch.relu(linear_apply(p["l1"], x))
-    x = torch.relu(linear_apply(p["l2"], x))
+    bf16 = mcfg.bf16
+    x = torch.relu(linear_apply(p["l0"], x, bf16=bf16))
+    x = torch.relu(linear_apply(p["l1"], x, bf16=bf16))
+    x = torch.relu(linear_apply(p["l2"], x, bf16=bf16))
     x = torch.cat([x, cond], dim=-1)
-    x = torch.relu(linear_apply(p["l3"], x))
-    return torch.sigmoid(linear_apply(p["l4"], x))
+    x = torch.relu(linear_apply(p["l3"], x, bf16=bf16))
+    return torch.sigmoid(linear_apply(p["l4"], x, bf16=bf16))
 
 
 def albedo_head(params, mcfg: AniSDFConfig, feat):
-    out = mlp_apply(params["albedo"], feat, actvn="softplus100", skips=())
+    out = mlp_apply(params["albedo"], feat, actvn="softplus100", skips=(),
+                    bf16=mcfg.bf16)
     return mcfg.albedo_slope * torch.sigmoid(out) + mcfg.albedo_bias
 
 
 def roughness_head(params, mcfg: AniSDFConfig, feat):
-    out = mlp_apply(params["roughness"], feat, actvn="softplus100", skips=())
+    out = mlp_apply(params["roughness"], feat, actvn="softplus100", skips=(),
+                    bf16=mcfg.bf16)
     return mcfg.roughness_slope * torch.sigmoid(out) + mcfg.roughness_bias
 
 

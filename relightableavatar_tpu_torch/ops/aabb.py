@@ -5,6 +5,11 @@ from __future__ import annotations
 import torch
 
 
+def pad_box(box: torch.Tensor, margin: float) -> torch.Tensor:
+    """(2, 3) box grown by ``margin`` on every side."""
+    return torch.stack([box[0] - margin, box[1] + margin])
+
+
 def get_near_far_aabb(bounds: torch.Tensor, ray_o: torch.Tensor,
                       ray_d: torch.Tensor, epsilon: float = 1e-8):
     """bounds (..., 2, 3); ray_o/ray_d (..., P, 3) ->

@@ -4,8 +4,11 @@
 sphere trace -> 3-sample surface-band volume render with autodiff normals ->
 DFSS shadow rays toward every light texel -> GGX shading -> sRGB.
 
-Inference on the exact path.  The acceleration options this slice does not
-port raise in :meth:`RelightRenderConfig.from_cfg`.
+Inference, on the exact path or with the acceleration stack: shadow rays
+on a baked SDF grid (``tpu.shadow_grid``), the slice-sweep visibility
+volume (``tpu.lvis_sweep``) and the camera trace's exact miss skip
+(``tpu.surf_miss_skip``).  The options not ported raise in
+:meth:`RelightRenderConfig.from_cfg`.
 """
 from __future__ import annotations
 
@@ -16,21 +19,24 @@ import torch
 
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
-from relightableavatar_tpu_torch.ops.aabb import get_near_far_aabb
+from relightableavatar_tpu_torch.ops.aabb import get_near_far_aabb, pad_box
 from relightableavatar_tpu_torch.ops.brdf import evaluate_shade, microfacet_brdf
 from relightableavatar_tpu_torch.ops.envmap import (gen_light_xyz, linear2srgb,
                                                     lvis_upsample_matrix,
                                                     probe_at_texels,
                                                     sample_envmap_image)
 from relightableavatar_tpu_torch.ops.lbs import normalize
+from relightableavatar_tpu_torch.ops.lvis_sweep import query_ratio_volume
 from relightableavatar_tpu_torch.ops.sdf import volume_rendering
-from relightableavatar_tpu_torch.renderer.tracing import STConfig, sphere_trace
+from relightableavatar_tpu_torch.ops.sdf_grid import (build_sdf_grid, grid_sdf,
+                                                      grid_sdf_lower_bound)
+from relightableavatar_tpu_torch.renderer.tracing import (STConfig, sphere_trace,
+                                                          sphere_trace_miss_skip)
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
-# cfg.tpu acceleration options that this slice does not port, with the value
-# that means "off"; turning one on raises instead of being ignored
+# cfg.tpu options that are not ported, with the value that means "off";
+# turning one on raises instead of being ignored
 _UNPORTED_TPU = {
-    'shadow_grid': 0, 'lvis_sweep': False, 'surf_miss_skip': False,
     'surf_grid_iters': 0, 'shadow_compact': 0.0, 'shadow_skip_resd': False,
     'shadow_verts_sub': 1, 'frame_fuse': False, 'volume_cull': 0,
 }
@@ -55,6 +61,13 @@ class RelightRenderConfig(NamedTuple):
     env_r: float = 10.0
     bbox_margin: float = 0.25
     shadow_block: int = 32768
+    shadow_grid: int = 0              # SDF voxel grid for shadow rays (0 = exact HDQ)
+    surf_miss_skip: bool = False      # exact miss skip of the camera trace
+    surf_skip_iters: int = 32         # lower-bound march iterations of the skip
+    surf_skip_margin: float = 0.01    # safety margin m0 of the skip march (m)
+    lvis_sweep: bool = False          # slice-sweep DFSS volume instead of shadow rays
+    lvis_query_offset: float = 0.5    # sweep lookup offset along the normal (voxels)
+    grid_margin: float = 0.05         # box pad of the SDF grid
     lvis_downscale: int = 1           # trace visibility on an (eH/k, eW/k) light grid
     distant_envmap: bool = False      # light[l] = probe texel l (skip per-dir sampling)
     want_light_maps: bool = False     # keep (P, L) lvis/ldot maps
@@ -91,6 +104,13 @@ class RelightRenderConfig(NamedTuple):
             env_r=float(cfg.env_r),
             bbox_margin=float(cfg.env_lvis.bbox_margin),
             shadow_block=min(int(cfg.network_chunk_size), 32768),
+            shadow_grid=int(cfg.tpu.shadow_grid),
+            surf_miss_skip=bool(cfg.tpu.surf_miss_skip),
+            surf_skip_iters=int(cfg.tpu.surf_skip_iters),
+            surf_skip_margin=float(cfg.tpu.surf_skip_margin),
+            lvis_sweep=bool(cfg.tpu.lvis_sweep),
+            lvis_query_offset=float(cfg.tpu.lvis_query_offset),
+            grid_margin=float(cfg.tpu.grid_margin),
             lvis_downscale=int(cfg.tpu.lvis_downscale),
             distant_envmap=bool(cfg.tpu.distant_envmap),
             want_light_maps=bool(cfg.vis_novel_light),
@@ -120,13 +140,15 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
                      sharp: torch.Tensor,  # (L,)
                      bbox: torch.Tensor,   # (2, 3)
                      lv: STConfig, rcfg: RelightRenderConfig,
-                     soft_shadow: bool = True):
+                     soft_shadow: bool = True, sdf_override=None):
     """lvis (P, L), ldot (P, L) (sphere_tracing_renderer.py:265-344).
 
     Only the active shadow rays (front-facing texel of a hit pixel whose ray
     meets the bbox) are traced, in chunks of ``rcfg.shadow_block``: per ray
     the trace is independent of the others, so this equals the JAX
-    package's sorted block skip (``sphere_tracing.py:201-237``)."""
+    package's sorted block skip (``sphere_tracing.py:201-237``) and its
+    masked trace of every ray on the SDF grid.  ``sdf_override`` replaces
+    the HDQ SDF (the grid lookup; ``bbox`` is then the grid's box)."""
     P = surf.shape[0]
     L = xyz.shape[0]
 
@@ -149,8 +171,9 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
     lbox = nb < fb                                            # (F, 1)
     active = lfrt.reshape(F, 1) & lbox
 
-    sdf_fn = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x,
-                                      smooth_transition=True, dist_th=lv.dist_th)
+    sdf_fn = sdf_override if sdf_override is not None else (
+        lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True,
+                                 dist_th=lv.dist_th))
     occ = torch.ones((F, 1), dtype=surf.dtype, device=surf.device)
     sel_all = torch.nonzero(active[:, 0]).squeeze(1)
     blk = min(rcfg.shadow_block, F)
@@ -175,9 +198,17 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
                        envmap_probe,                         # (eH, eW, 3)
                        light_xyz, light_area, light_sharp,   # (eH,eW,3),(eH,eW),(eH,eW)
                        st_surf: STConfig, st_obj: STConfig,
-                       rcfg: RelightRenderConfig) -> dotdict:
+                       rcfg: RelightRenderConfig, shadow_sdf_grid=None,
+                       lvis_volume=None) -> dotdict:
     """One pixel block of render_human (sphere_tracing_renderer.py:551-784),
-    inference branch."""
+    inference branch.
+
+    With ``rcfg.shadow_grid`` the shadow rays march ``shadow_sdf_grid`` (the
+    frame's baked grid over the body box padded by ``rcfg.grid_margin``,
+    raw or packed), or a cubic grid baked here when none is passed; with
+    ``rcfg.surf_miss_skip`` the camera trace skips the proven misses on its
+    lower bound; with ``rcfg.lvis_sweep`` and a ``lvis_volume`` the
+    visibility is one lookup of that volume."""
     P = ray_o.shape[0]
     dev, dt = ray_o.device, ray_o.dtype
     near_c = near.reshape(P, 1)
@@ -185,13 +216,27 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
 
     surf_sdf = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True)
 
-    bbox = ctx["wbounds"].clone()
-    bbox[0] -= rcfg.bbox_margin
-    bbox[1] += rcfg.bbox_margin
+    bbox = pad_box(ctx["wbounds"], rcfg.bbox_margin)
+    shadow_sdf = lower_bound_sdf = gbox = None
+    if rcfg.shadow_grid > 0:
+        # the SDF grid is tight around the body (the occluders are the body)
+        gbox = pad_box(ctx["wbounds"], rcfg.grid_margin)
+        grid = shadow_sdf_grid
+        if grid is None:
+            hdq = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True,
+                                           dist_th=st_obj.dist_th)
+            grid = build_sdf_grid(hdq, gbox[0], gbox[1], rcfg.shadow_grid)
+        shadow_sdf = lambda x: grid_sdf(grid, gbox[0], gbox[1], x)
+        lower_bound_sdf = lambda x: grid_sdf_lower_bound(grid, gbox[0], gbox[1], x)
 
     # ---- surface intersection
-    surf, edge, occ, st_t, ot_t = sphere_trace(surf_sdf, ray_o, ray_d, near_c,
-                                               far_c, st_surf, soft_shadow=False)
+    if rcfg.surf_miss_skip and lower_bound_sdf is not None:
+        surf, edge, occ, st_t, ot_t = sphere_trace_miss_skip(
+            surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c, far_c, st_surf,
+            skip_iter=rcfg.surf_skip_iters, margin=rcfg.surf_skip_margin)
+    else:
+        surf, edge, occ, st_t, ot_t = sphere_trace(surf_sdf, ray_o, ray_d, near_c,
+                                                   far_c, st_surf, soft_shadow=False)
     depth = (surf[:, 0] - ray_o[:, 0]) / ray_d[:, 0]
     acc = 1.0 - occ[:, 0]
     hit = acc > 0
@@ -280,9 +325,25 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
         else:
             xyz_v, sharp_v, U = xyz, sharp, None
 
-        lvis, ldot = light_visibility(params, mcfg, ctx, surf, norm, acc,
-                                      xyz_v, sharp_v, bbox, st_obj, rcfg,
-                                      soft_shadow=not rcfg.no_dfss)
+        if (rcfg.lvis_sweep and lvis_volume is not None and gbox is not None
+                and not rcfg.no_visibility and not rcfg.local_visibility):
+            # one trilinear read of the sweep volume per surface point,
+            # offset along the normal so it stays on outside cells
+            voxel = torch.max(gbox[1] - gbox[0]) / (rcfg.shadow_grid - 1)
+            q = surf + norm * (rcfg.lvis_query_offset * voxel)
+            r_vol = query_ratio_volume(lvis_volume, gbox[0], gbox[1], q)
+            if rcfg.no_dfss:
+                tan_iv = torch.full_like(sharp_v, st_obj.tan_i)
+            else:
+                tan_iv = st_obj.tan_i_multiplier * sharp_v
+            occ_v = torch.clamp(r_vol * (tan_iv[None, :] * 0.5), 0.0, 1.0)
+            ldot = norm @ normalize(xyz_v).T
+            lvis = occ_v * ((ldot > 0) & (acc[:, None] > 0))
+        else:
+            lvis, ldot = light_visibility(
+                params, mcfg, ctx, surf, norm, acc, xyz_v, sharp_v,
+                gbox if shadow_sdf is not None else bbox, st_obj, rcfg,
+                soft_shadow=not rcfg.no_dfss, sdf_override=shadow_sdf)
         if U is not None:
             lvis = torch.clamp(lvis @ U, 0.0, 1.0)
             ldot = norm @ normalize(xyz).T

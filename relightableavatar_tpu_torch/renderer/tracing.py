@@ -4,6 +4,8 @@ reference ``lib/networks/renderer/sphere_tracing_renderer.py:107-262``).
 The fixed-iteration signed tracer with relax + offset stepping, sign-flip
 surface refinement, closest-distance tracking, Claybook banding removal and
 the DFSS cone occlusion ``d / (2 t tan)``; a Python loop over iterations.
+Also the camera trace's exact miss skip (:func:`sphere_trace_miss_skip`),
+which first marches every ray on a conservative SDF lower bound.
 """
 from __future__ import annotations
 
@@ -120,6 +122,60 @@ def sphere_trace(sdf_fn: Callable[[torch.Tensor], torch.Tensor],
     surf = ray_o + st_t * ray_d
     edge = ray_o + ot * ray_d
     return surf, edge, occ, st_t, ot
+
+
+@torch.no_grad()
+def safe_miss_march(lb_fn, ray_o, ray_d, near, far, tan_i: float,
+                    margin: float = 0.01, iters: int = 32) -> torch.Tensor:
+    """March every ray on a conservative SDF lower bound with step
+    ``max(d_lb - m(t), 0)``, ``m(t) = margin + 2 t / tan_i``; (P,) bool
+    marking the rays proven to be clean misses: they covered [near, far]
+    with the margin intact, so the exact tracer's DFSS ``cls`` stays >= 1
+    along them (the proof is in :func:`sphere_trace_miss_skip`)."""
+    P = ray_o.shape[0]
+    near = near.reshape(P, 1)
+    far = far.reshape(P, 1)
+    m_slope = 2.0 / tan_i
+    t = near
+    for _ in range(iters):
+        d = lb_fn(ray_o + t * ray_d)
+        m = margin + t * m_slope
+        t = torch.minimum(t + torch.clamp(d - m, min=0.0), far)
+    return t[:, 0] >= far[:, 0] - 1e-6
+
+
+@torch.no_grad()
+def sphere_trace_miss_skip(sdf_fn, lb_fn, ray_o, ray_d, near, far, st: STConfig,
+                           skip_iter: int = 32, margin: float = 0.01):
+    """Camera-ray trace that skips the rays a lower-bound march proves to
+    miss (``relightableavatar_tpu/renderer/tracing.py:197-285``).
+
+    ``lb_fn`` <= the true SDF (``grid_sdf_lower_bound``), so every stepped
+    segment [t, t + d_lb - m] has d_true >= m(t) along it (1-Lipschitz).  A
+    ray that covers [near, far] that way keeps ``cls = d tan_i / (2 t) >= 1``
+    wherever the exact tracer could sample, so its exact result is occ = 1:
+    every map of it is zero after the renderer's hit and acc masking.  Those
+    rays report the clean-miss state (st = ot = far, occ = 1); the others
+    are compacted and traced from their original ``near`` with the full
+    ``st`` budget.  Each ray's trace is independent of the others, so this
+    equals the JAX package's sorted sub-block skip up to float
+    reassociation in the batched MLPs.  Returns the tuple of
+    :func:`sphere_trace`."""
+    P = ray_o.shape[0]
+    near = near.reshape(P, 1)
+    far = far.reshape(P, 1)
+    miss = safe_miss_march(lb_fn, ray_o, ray_d, near, far, st.tan_i, margin, skip_iter)
+    end = ray_o + far * ray_d
+    surf, edge = end.clone(), end.clone()
+    occ = torch.ones_like(far)
+    st_t, ot_t = far.clone(), far.clone()
+    sel = torch.nonzero(~miss).squeeze(1)
+    if sel.numel():
+        res = sphere_trace(sdf_fn, ray_o[sel], ray_d[sel], near[sel], far[sel], st,
+                           soft_shadow=False)
+        for dst, src in zip((surf, edge, occ, st_t, ot_t), res):
+            dst[sel] = src
+    return surf, edge, occ, st_t, ot_t
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
-plain version on the card, and the relight render on the card.  They skip
-with a reason where torch finds no CUDA device; on the card run them with
-``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+plain version on the card, the relight render on the card, the slice sweep
+and the bfloat16 MLP route on the card against the CPU, and the bench-stack
+golden.  They skip with a reason where torch finds no CUDA device; on the
+card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
 import pytest
 import torch
@@ -10,6 +11,7 @@ from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
+from relightableavatar_tpu_torch.ops import mlp
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
 from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
 
@@ -83,3 +85,66 @@ def test_frame_on_the_card_goes_through_the_kernel(scene):
     finally:
         anisdf.knn_top3 = dispatch
     assert torch.equal(out.rgb_map, plain.rgb_map)
+
+
+def test_sweep_on_the_card_equals_the_cpu(scene):
+    """The bench-stack frame's sweep volume (48-node grid, 8x16 directions)
+    on the card against the same sweep of the same grid on the CPU: no
+    matmul runs in it, so no TF32 or reduced-precision path can enter
+    (bar 1e-6 relative)."""
+    _, ctx, params, mcfg = scene
+    cfg = golden.benchstack_cfg()
+    renderer = SphereTracingRenderer(cfg, params, mcfg, device=ctx["pverts"].device)
+    gbox = renderer.grid_box(ctx)
+    grid = renderer.bake_grid(ctx, gbox, packed=False)
+    vol = renderer.sweep_volume(grid, gbox)
+    ref = renderer.sweep_volume(grid.cpu(), gbox.cpu())
+    assert vol.shape == grid.shape + (128,)
+    torch.testing.assert_close(vol.cpu(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("keep_bf16", [False, True], ids=["f32_out", "bf16_out"])
+def test_bf16_route_on_the_card(cuda, keep_bf16):
+    """``torch.mm(out_dtype=float32)`` on bfloat16 operands against the CPU
+    route (operands rounded, multiplied in float32): the products are exact
+    on both and only the order of the float32 sums differs, so each output
+    lies within 1e-5 of the sum of its products' magnitudes; a bfloat16
+    output may round one step (at most 2^-7 relative) apart.  The input gradient
+    through the autograd function against the CPU autograd graph, held the
+    same way."""
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(4099, 83)).astype(np.float32))
+    # plain (in, out) weights: a weight-norm fold on each device can differ
+    # by an ulp, which bfloat16 rounding would turn into a 2^-8 step
+    p = {"w": torch.as_tensor(rng.normal(size=(83, 256)).astype(np.float32) / 9),
+         "b": torch.as_tensor(rng.normal(size=256).astype(np.float32))}
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).requires_grad_(True)
+        y = mlp.linear_apply({k: v.to(dev) for k, v in p.items()}, xd, bf16=True,
+                             keep_bf16=keep_bf16)
+        (g,) = torch.autograd.grad(y.float().square().sum(), xd)
+        outs.append(y.detach().float().cpu())
+        grads.append(g.cpu())
+    w = p["w"].to(torch.bfloat16).float()
+    xb = x.to(torch.bfloat16).float()
+    # outputs: the sum order (1e-5 of the products' magnitudes), plus one
+    # bfloat16 ulp (at most 2^-7 relative) where the output is rounded
+    step = 2.0 ** -7 if keep_bf16 else 0.0
+    bound_y = 1e-5 * (xb.abs() @ w.abs() + p["b"].abs()) + step * outs[0].abs()
+    # gradients: the cotangent 2y carries twice the output's difference
+    # through |w|, plus the sum order, plus the rounding to the input's bfloat16
+    bound_g = ((2 * bound_y) @ w.abs().T + 1e-5 * ((2 * outs[0]).abs() @ w.abs().T)
+               + 2.0 ** -7 * grads[0].abs())
+    for got, ref, bound in ((outs[1], outs[0], bound_y), (grads[1], grads[0], bound_g)):
+        err = (got - ref).abs()
+        assert (err <= bound).all(), float((err / bound).max())
+
+
+def test_benchstack_golden_on_the_card(cuda):
+    img, n = golden.render_benchstack_64(device=cuda)
+    ok, p = golden.check_golden(img)
+    assert ok and p >= 45.0
+    skip, n2 = golden.render_benchstack_64(device=cuda, cfg_overrides={'surf_miss_skip': True})
+    assert n2 == n
+    np.testing.assert_allclose(skip, img, atol=1e-5, rtol=0)

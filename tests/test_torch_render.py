@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_fixture_scene import few_torch_threads  # noqa: F401 (fixture)
 from relightableavatar_tpu.config import default_cfg as j_default_cfg
 from relightableavatar_tpu.models import anisdf as j_anisdf
 from relightableavatar_tpu.models.context import make_bigpose, make_frame_context
@@ -155,13 +156,11 @@ def test_check_termination_sdf_stats(fixture_scene):
     assert np.isfinite(s) and s >= 0 and 0 < n <= 256 and s / n < 0.5
 
 
-UNPORTED = [('tpu', 'shadow_grid', 48), ('tpu', 'lvis_sweep', True),
-            ('tpu', 'surf_miss_skip', True), ('tpu', 'surf_grid_iters', 8),
+UNPORTED = [('tpu', 'surf_grid_iters', 8),
             ('tpu', 'shadow_compact', 0.5), ('tpu', 'shadow_skip_resd', True),
             ('tpu', 'shadow_verts_sub', 4), ('tpu', 'knn_impl', 'grouped'),
             ('tpu', 'knn_impl', 'xla'), ('tpu', 'frame_fuse', True),
-            ('tpu', 'volume_cull', 32), ('tpu', 'bf16_mlp', True),
-            ('tpu', 'bf16_act', True), (None, 'e_type', 'hash'),
+            ('tpu', 'volume_cull', 32), (None, 'e_type', 'hash'),
             (None, 'ablate_hdq_mode', 'world'), (None, 'vis_ground_shading', True)]
 
 
@@ -173,3 +172,32 @@ def test_unported_options_raise(fixture_scene, node, key, value):
     (cfg[node] if node else cfg)[key] = value
     with pytest.raises(NotImplementedError):
         SphereTracingRenderer(cfg, params, AniSDFConfig.from_cfg(cfg), device="cpu")
+
+
+# options that raised before they were ported; each now builds a renderer
+# and renders a frame to finite maps (their parity with the JAX package:
+# test_torch_accel.py, test_torch_bf16.py, test_torch_frame.py)
+PORTED = [('shadow_grid', 17), ('lvis_sweep', True), ('surf_miss_skip', True),
+          ('bf16_mlp', True), ('bf16_act', True)]
+
+
+@pytest.mark.parametrize("key,value", PORTED, ids=[f"{k}={v}" for k, v in PORTED])
+def test_ported_options_render(fixture_scene, key, value):
+    cfg, ctx, params, _ = fixture_scene
+    cfg = cfg.clone()
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.tpu.lvis_downscale = 8
+    cfg.tpu.ray_block = 64
+    cfg.tpu[key] = value
+    if key in ('lvis_sweep', 'surf_miss_skip'):
+        cfg.tpu.shadow_grid = 17            # the grid these options read
+    renderer = SphereTracingRenderer(cfg, params, AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8),
+                                     device="cpu")
+    batch, mab = golden.frame_batch(ctx, 16, 16)
+    out = renderer.render(batch)
+    assert out.rgb_map.shape == (int(mab.sum()), 3)
+    assert (out.acc_map > 0).any()
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.isfinite(v).all(), k
