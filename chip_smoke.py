@@ -33,9 +33,28 @@ Phases, each printing one flushed line with its wall seconds:
           skip, bfloat16 MLPs) through SphereTracingRenderer.render, with its
           launch count, recording the grid bake's first KNN input; then once
           more with a device sync after each stage for the stage times
+  sweep-frame  bench.py's relight_sweep_8light frame (``golden.sweep_frame_cfg()``:
+          the accel stack without the miss skip, 8 lights) through
+          NovelLightRenderer.render: base pass and re-shade seconds, KNN
+          launches, peak memory; the 8 rgb maps finite and pairwise
+          different; the re-shade on the card against the plain (P, L, 3)
+          reshade_dense on the first 4096 rays that hit, for every light; then one
+          light x 128 rotations, rotation 4 equal to the probe rolled by one
+          texel column
+  ground  the accel frame with the full-frame ground pass
+          (``golden.ground_frame_cfg()``): seconds, shadow rays traced, KNN
+          launches; H x W maps, acc all ones, finite, the ground lit; then
+          the 32x32 ground frame on the card against the CPU
+  volume-frame  bench.py's novel_view_512 and novel_view_512_cull32 frames
+          (``golden.volume_frame_cfg()``: the stage-1 network, 128 samples a
+          ray, 8192-ray blocks of 1,048,576 points) through
+          VolumeRenderer.render: seconds, rays/s, KNN launches, peak memory,
+          culled against exact; then the 32x32 volume frame on the card
+          against the CPU
   knn-frame  the kernel bit for bit against the plain version on the
-          recorded frame inputs (the bake's 180,224 points included), and
-          its time on each
+          recorded frame inputs (the bake's 180,224 points and the volume's
+          first and last 1,048,576-point blocks included), its time on each
+          and its bound
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them.  Imports nothing but the port, torch, numpy and the standard
@@ -52,6 +71,7 @@ import time
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.data.datasets import load_lighting
 from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
@@ -60,7 +80,10 @@ from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
-from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
+                                                             SphereTracingRenderer,
+                                                             reshade_dense)
+from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside the
 # tensor cores and HBM3 bandwidth
@@ -74,6 +97,18 @@ TIMED_P = 32768             # the shadow-ray block: most of the frame's launches
 REPS = 7                    # timed turns per version
 SWEEP_RTOL = 1e-6           # card vs CPU sweep: gathers and elementwise ops only
 SKIP_ATOL = 1e-5            # miss skip on vs off (tests/test_golden.py:194)
+# re-shade of the card's sweep against the plain (P, L, 3) form: float32 sums
+# over 512 texels in another order (cuBLAS products against torch.sum), then
+# the sRGB curve, whose slope reaches 12.9 near black
+RESHADE_ATOL = 2e-4
+RESHADE_RAYS = 4096         # hit rays of the sweep frame held to the plain form
+ROTATE_ATOL = 1e-6          # rotation by a whole texel column against np.roll
+ROTATIONS = 4               # rotate_ratio: 32 x 4 = 128 probes a light
+# the small frames on the card against the CPU: float32 both, TF32 off; the
+# MLP sums run in another order, which the traces can turn into a changed
+# silhouette pixel
+CARD_CPU_MIN_PSNR = 50.0
+VOLUME_P = 8192 * 128       # points of one volume ray block
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -298,6 +333,182 @@ def main() -> None:
           f"{st.blocks - st.blocks_rendered} of {st.blocks}; peak memory {peak_a:.2f} GiB; "
           f"rgb vs the exact frame {a_psnr:.2f} dB (lossy by design)")
 
+    # ---- the novel-light sweep (the third main path)
+    t0 = time.perf_counter()
+    cfg_s = golden.sweep_frame_cfg()
+    renderer_s = NovelLightRenderer(cfg_s, params_a, mcfg_a, device="cuda")
+    batch_s, _ = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+    batch_s.novel_lights = load_lighting(cfg_s)
+    check(list(batch_s.novel_lights) != [] and len(batch_s.novel_lights) == 8,
+          f"load_lighting gave {list(batch_s.novel_lights)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn_cuda.KNN_TOP3.launches = 0
+    t1 = time.perf_counter()
+    res_s = renderer_s.render(batch_s)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t1
+    launches_sweep = knn_cuda.KNN_TOP3.launches
+    check(launches_sweep > 0, "the sweep frame did not launch the KNN kernel")
+    peak_s = torch.cuda.max_memory_allocated() / 2**30
+    names = list(res_s.novel_light)
+    check(names == list(batch_s.novel_lights), f"sweep lights {names}")
+    rgbs = [res_s.novel_light[n].rgb_map for n in names]
+    for n, rgb_l in zip(names, rgbs):
+        check(rgb_l.shape == (n_fg, 3) and bool(torch.isfinite(rgb_l).all()),
+              f"sweep light {n}: shape {tuple(rgb_l.shape)} or not finite")
+    for i in range(len(rgbs)):
+        for j in range(i + 1, len(rgbs)):
+            check(not torch.equal(rgbs[i], rgbs[j]), f"lights {names[i]} and {names[j]} "
+                  "gave the same rgb_map")
+    base = res_s.base
+    s_ = torch.nonzero(base.acc_map > 0).squeeze(1)[:RESHADE_RAYS]    # rays that hit
+    check(s_.numel() == RESHADE_RAYS, f"the sweep frame hit only {s_.numel()} rays")
+    ray_o_s = torch.as_tensor(batch_s.ray_o, device=dev)[s_]
+    reshade_err = 0.0
+    for n in names:
+        dense = reshade_dense(base.surf_map[s_], base.norm_map[s_], base.albedo_map[s_],
+                              base.roughness_map[s_, None], base.lvis_map[s_],
+                              base.ldot_map[s_], base.acc_map[s_], ray_o_s,
+                              res_s.novel_light[n].envmap.probe, renderer_s.light_xyz,
+                              renderer_s.light_area, renderer_s.rcfg)
+        for key in ("rgb_map", "shade_map"):
+            reshade_err = max(reshade_err, max_abs_diff(res_s.novel_light[n][key][s_], dense[key]))
+    check(reshade_err <= RESHADE_ATOL, f"sweep re-shade vs reshade_dense: max |diff| "
+          f"{reshade_err:.3e} > {RESHADE_ATOL}")
+    per_light = (sweep_s - res_s.diff) / len(names)
+    phase("sweep-frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} relight_sweep_8light: "
+          f"{n_fg} rays, {len(names)} lights; total {sweep_s:.3f} s, base pass {res_s.diff:.3f} s, "
+          f"re-shade {renderer_s.last_frame.reshade_s:.3f} s ({per_light:.4f} s a light as bench.py "
+          f"counts it: (total - base) / lights); KNN kernel launches {launches_sweep}; peak "
+          f"memory {peak_s:.2f} GiB; re-shade vs reshade_dense on {RESHADE_RAYS} hit rays, every "
+          f"light: max |diff| {reshade_err:.3e}")
+
+    t0 = time.perf_counter()
+    cfg_r = golden.sweep_frame_cfg()
+    cfg_r.vis_rotate_light = True
+    cfg_r.rotate_ratio = ROTATIONS
+    light = names[0]
+    batch_r, _ = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+    batch_r.novel_lights = {light: batch_s.novel_lights[light]}
+    renderer_r = NovelLightRenderer(cfg_r, params_a, mcfg_a, device="cuda")
+    t1 = time.perf_counter()
+    res_r = renderer_r.render(batch_r)
+    torch.cuda.synchronize()
+    rot_s = time.perf_counter() - t1
+    n_rot = len(res_r.novel_light)
+    check(n_rot == cfg_r.env_w * ROTATIONS, f"{n_rot} rotations")
+    rolled = np.roll(np.asarray(batch_s.novel_lights[light].probe), -1, axis=1)
+    rot_err = float(np.abs(res_r.novel_light[f"{light}-{ROTATIONS:04d}"].envmap.probe.cpu().numpy()
+                           - rolled).max())
+    check(rot_err <= ROTATE_ATOL, f"rotation {ROTATIONS} vs the probe rolled by one column: "
+          f"{rot_err:.3e}")
+    rot0_err = max_abs_diff(res_r.novel_light[f"{light}-0000"].rgb_map, rgbs[0])
+    check(rot0_err <= RESHADE_ATOL, f"rotation 0 vs the unrotated light: {rot0_err:.3e}")
+    phase("sweep-frame", t0, f"{light} x {n_rot} rotations (rotate_ratio {ROTATIONS}): "
+          f"{rot_s:.3f} s, base pass {res_r.diff:.3f} s, re-shade "
+          f"{renderer_r.last_frame.reshade_s:.3f} s; rotation {ROTATIONS} vs the probe rolled "
+          f"by one column max |diff| {rot_err:.3e}; rotation 0 vs the sweep's {light} "
+          f"max |diff| {rot0_err:.3e}")
+    del res_r, renderer_r
+
+    # ---- the full-frame ground pass
+    t0 = time.perf_counter()
+    cfg_g = golden.ground_frame_cfg()
+    renderer_g = SphereTracingRenderer(cfg_g, params_a, mcfg_a, device="cuda")
+    batch_g, mab_g = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+    renderer_g.time_stages = True
+    torch.cuda.synchronize()
+    knn_cuda.KNN_TOP3.launches = 0
+    t1 = time.perf_counter()
+    res_g = renderer_g.render(batch_g)
+    torch.cuda.synchronize()
+    ground_frame_s = time.perf_counter() - t1
+    launches_ground = knn_cuda.KNN_TOP3.launches
+    check(launches_ground > 0, "the ground frame did not launch the KNN kernel")
+    n_px = golden.FRAME_SIZE ** 2
+    check(res_g.rgb_map.shape == (n_px, 3) and res_g.acc_map.shape == (n_px,),
+          "ground frame maps are not H x W")
+    check(bool((res_g.acc_map == 1).all()), "ground frame acc is not all ones")
+    for k, v in res_g.items():
+        if isinstance(v, torch.Tensor):
+            check(bool(torch.isfinite(v).all()), f"ground frame {k} not finite")
+    ground_only = torch.as_tensor(~mab_g, device=dev)
+    lit = float(res_g.rgb_map[ground_only].max())
+    check(lit > 0, "the ground is not lit")
+    check(bool(np.asarray(batch_g.mask_at_box).all()), "mask_at_box is not the full frame")
+    shadow_rays = renderer_g.last_frame.shadow_rays
+    ground_s = renderer_g.last_frame.ground_s
+    del res_g
+    t1 = time.perf_counter()
+    small_card = golden.render_check_frame(golden.ground_check_cfg(), device="cuda")
+    small_cpu = golden.render_check_frame(golden.ground_check_cfg(), device="cpu")
+    cpu_s = time.perf_counter() - t1
+    g_psnr = {k: golden.psnr(small_card[k], small_cpu[k]) for k in small_cpu}
+    # spec_map divides by |ldot| + 1e-8 at grazing texels (ROADMAP, "spec_map
+    # parity"): printed, not held
+    for k, p in g_psnr.items():
+        check(p >= CARD_CPU_MIN_PSNR or k == "spec_map",
+              f"32x32 ground frame {k}: card vs CPU {p:.2f} dB")
+    phase("ground", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} ground frame: "
+          f"{ground_frame_s:.3f} s, of it the ground pass {ground_s:.3f} s "
+          f"({n_px} rays x {renderer_g.light_xyz.shape[0] * renderer_g.light_xyz.shape[1]} "
+          f"texels, {shadow_rays} shadow rays traced); KNN kernel launches {launches_ground}; "
+          f"ground rgb max {lit:.3f}; {golden.CHECK_SIZE}x{golden.CHECK_SIZE} ground frame "
+          f"card vs CPU ({cpu_s:.1f} s): "
+          + ", ".join(f"{k} {p:.2f} dB" for k, p in sorted(g_psnr.items())))
+
+    # ---- the stage-1 volume renderer, exact and culled
+    t0 = time.perf_counter()
+    volume_inputs: dict = {}
+    vol = {}
+    for cull in (0, 32):
+        cfg_v = golden.volume_frame_cfg(cull)
+        _, params_v, mcfg_v = golden.load_fixture(cfg_v, device="cuda")
+        renderer_v = VolumeRenderer(cfg_v, params_v, mcfg_v, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        store = volume_inputs if cull == 0 else {}
+        with record_knn_inputs(store, sizes=(VOLUME_P,), tail=False, last=True):
+            knn_cuda.KNN_TOP3.launches = 0
+            t1 = time.perf_counter()
+            res_v = renderer_v.render(batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            n_knn = knn_cuda.KNN_TOP3.launches
+        check(n_knn > 0, f"the volume frame (cull {cull}) did not launch the KNN kernel")
+        check(res_v.rgb_map.shape == (n_fg, 3) and res_v.acc_map.shape == (n_fg,),
+              f"volume frame (cull {cull}) shapes")
+        for k, v in res_v.items():
+            check(bool(torch.isfinite(v).all()), f"volume frame (cull {cull}) {k} not finite")
+        acc_v = res_v.acc_map
+        check(bool((acc_v >= 0).all() and (acc_v <= 1 + 1e-5).all()),
+              f"volume frame (cull {cull}) acc outside [0, 1]")
+        check(float(acc_v.max()) > 0.5, f"volume frame (cull {cull}) sees no body")
+        vol[cull] = dict(s=secs, launches=n_knn, peak=torch.cuda.max_memory_allocated() / 2**30,
+                         rgb=res_v.rgb_map.cpu().numpy(), acc=acc_v.cpu().numpy(),
+                         blocks=renderer_v.last_frame.blocks)
+        del res_v
+    check(VOLUME_P in volume_inputs and (VOLUME_P, "last") in volume_inputs,
+          "the volume frame made no 1,048,576-point KNN call")
+    launches_volume, launches_cull = vol[0]["launches"], vol[32]["launches"]
+    cull_psnr = golden.psnr(vol[32]["rgb"], vol[0]["rgb"])
+    cull_acc = float(np.abs(vol[32]["acc"] - vol[0]["acc"]).max())
+    t1 = time.perf_counter()
+    small_card = golden.render_check_frame(golden.volume_check_cfg(), device="cuda")
+    small_cpu = golden.render_check_frame(golden.volume_check_cfg(), device="cpu")
+    cpu_s = time.perf_counter() - t1
+    v_psnr = {k: golden.psnr(small_card[k], small_cpu[k]) for k in small_cpu}
+    for k, p in v_psnr.items():
+        check(p >= CARD_CPU_MIN_PSNR, f"32x32 volume frame {k}: card vs CPU {p:.2f} dB")
+    phase("volume-frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} novel_view_512: "
+          + "; ".join(f"{'exact' if c == 0 else f'cull{c}'} {v['s']:.3f} s = "
+                      f"{n_fg / v['s']:.0f} rays/s, {v['blocks']} blocks, KNN kernel launches "
+                      f"{v['launches']}, peak memory {v['peak']:.2f} GiB" for c, v in vol.items())
+          + f"; cull32 vs exact rgb {cull_psnr:.2f} dB, acc max |diff| {cull_acc:.3e}; "
+          f"{golden.CHECK_SIZE}x{golden.CHECK_SIZE} volume frame card vs CPU ({cpu_s:.1f} s): "
+          + ", ".join(f"{k} {p:.2f} dB" for k, p in sorted(v_psnr.items())))
+
     # ---- the kernel on the frame's own inputs
     t0 = time.perf_counter()
     check(set(FRAME_BLOCKS) <= set(frame_inputs), "the frame made no call at some block size")
@@ -311,8 +522,21 @@ def main() -> None:
               f"frame input P={name}: differs from the plain version")
         frame_inputs_ms[name] = time_in_turns(
             {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    volume_inputs_ms, volume_bound_ms = {}, {}
+    for key, name in ((VOLUME_P, "volume block 0"), ((VOLUME_P, "last"), "volume last block")):
+        p, vv = volume_inputs.pop(key)
+        d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+        d2r, ir = knn_top3_reference(p, vv)
+        max_err = max(max_err, max_abs_diff(d2k, d2r))
+        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
+              f"{name} ({p.shape[0]} points): differs from the plain version")
+        volume_inputs_ms[name] = time_in_turns(
+            {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+        volume_bound_ms[name] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
     phase("knn-frame", t0, "the frame's own KNN inputs: d2 and idx equal to the plain "
-          "version; kernel " + ", ".join(f"P={k} {ms:.4f} ms" for k, ms in frame_inputs_ms.items()))
+          "version; kernel " + ", ".join(f"P={k} {ms:.4f} ms" for k, ms in frame_inputs_ms.items())
+          + "; " + ", ".join(f"{k} (P={VOLUME_P}) {ms:.4f} ms, bound {volume_bound_ms[k]:.4f} ms"
+                             for k, ms in volume_inputs_ms.items()))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -322,6 +546,10 @@ def main() -> None:
         "replaces": "relightableavatar_tpu/ops/pallas_knn.py:28",
         "launches": launches,
         "launches_accel": launches_accel,
+        "launches_sweep": launches_sweep,
+        "launches_ground": launches_ground,
+        "launches_volume": launches_volume,
+        "launches_volume_cull32": launches_cull,
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -330,6 +558,8 @@ def main() -> None:
         "library_ms": lib_ms,
         "ms_by_P": ms_by_P,
         "frame_inputs_ms": frame_inputs_ms,
+        "volume_inputs_ms": volume_inputs_ms,
+        "volume_inputs_bound_ms": volume_bound_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -31,7 +31,12 @@ from relightableavatar_tpu_torch.weights import load_params
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GOLDEN_RELIGHT_24 = os.path.join(REPO, 'tests', 'golden_relight_24px.npy')
 GOLDEN_BENCHSTACK_64 = os.path.join(REPO, 'tests', 'golden_benchstack_64px.npy')
-FRAME_SIZE = 512    # width and height of the relight frames of frame_cfg() and accel_frame_cfg()
+FRAME_SIZE = 512    # width and height of the frames of the *_frame_cfg() configs
+CHECK_SIZE = 32     # width and height of the frames that hold the card to the CPU
+# bench.py's relight_sweep_8light lights: four HDRIs (procedural without
+# data/lighting) and four OLATs (indices 0, 27, 91, 200 of cfg.olats)
+SWEEP_LIGHTS = ['gym_entrance', 'city_sky', 'sunset_road', 'studio', 'olat0000-0000',
+                'olat0000-0027', 'olat0002-0027', 'olat0006-0008']
 
 
 def fixture_cfg():
@@ -87,6 +92,86 @@ def accel_frame_cfg():
     cfg.tpu.bf16_mlp = True
     cfg.tpu.ray_block = 8192
     return cfg
+
+
+def sweep_frame_cfg():
+    """Config of ``bench.py``'s ``relight_sweep_8light`` frame on the
+    fixture avatar (``bench.py:524-569``): :func:`frame_cfg` with the
+    acceleration stack at a 96-node grid, bfloat16 MLPs, ``ray_block`` 8192,
+    3 band samples, the novel-light maps kept and the 8 lights of
+    ``SWEEP_LIGHTS``."""
+    cfg = bench_stack(frame_cfg(), 96)
+    cfg.tpu.bf16_mlp = True
+    cfg.tpu.ray_block = 8192
+    cfg.n_samples = 3
+    cfg.vis_novel_light = True
+    cfg.test_light = list(SWEEP_LIGHTS)
+    return cfg
+
+
+def ground_frame_cfg():
+    """:func:`accel_frame_cfg` with the full-frame ground pass: every pixel
+    of the frame shades the ground plane under the learned envmap, with
+    soft shadows of the body traced on the exact HDQ SDF toward all 512
+    texels (``env_lvis``: 16 iterations, band 0.005 m)."""
+    cfg = accel_frame_cfg()
+    cfg.vis_ground_shading = True
+    return cfg
+
+
+def volume_frame_cfg(cull: int = 0):
+    """Config of ``bench.py``'s ``novel_view_512`` frame on the fixture
+    avatar (``bench.py:302-329``): the stage-1 network (``relighting``
+    off) volume-rendered with 128 samples a ray, bfloat16 MLPs,
+    ``ray_block`` 8192; ``cull`` = 32 is ``novel_view_512_cull32``
+    (``tpu.volume_cull``, 128-node grid)."""
+    cfg = fixture_cfg()
+    cfg.relighting = False
+    cfg.n_samples = 128
+    cfg.tpu.bf16_mlp = True
+    cfg.tpu.ray_block = 8192
+    cfg.tpu.volume_cull = cull
+    return cfg
+
+
+def ground_check_cfg():
+    """The small ground frame (``CHECK_SIZE`` squared) that holds the card
+    to the CPU: the fixture avatar in float32, 6 surface / 2 shadow
+    iterations, the ground pass's shadow rays toward all 16x32 texels at 4
+    ``env_lvis`` iterations (16 take about a minute on the CPU, nearly all
+    of it the plain KNN), ``ray_block`` 256."""
+    cfg = fixture_cfg()
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.env_lvis.iter = 4
+    cfg.tpu.ray_block = 256
+    cfg.vis_ground_shading = True
+    return cfg
+
+
+def volume_check_cfg(cull: int = 0):
+    """The small volume frame (``CHECK_SIZE`` squared) that holds the card
+    to the CPU: :func:`volume_frame_cfg` in float32, ``ray_block`` 256, a
+    48-node cull grid."""
+    cfg = volume_frame_cfg(cull)
+    cfg.tpu.bf16_mlp = False
+    cfg.tpu.ray_block = 256
+    cfg.tpu.volume_grid = 48
+    return cfg
+
+
+def render_check_frame(cfg, device="cuda", root: str = REPO) -> dict:
+    """The ``CHECK_SIZE`` squared frame of ``cfg`` (fixture frame 0, camera
+    0): the volume renderer when ``cfg.relighting`` is off, else
+    ``SphereTracingRenderer``.  Returns its maps as float32 numpy."""
+    from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+    from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
+    ctx, params, mcfg = load_fixture(cfg, device=device, root=root)
+    batch, _ = frame_batch(ctx, CHECK_SIZE, CHECK_SIZE)
+    cls = SphereTracingRenderer if cfg.relighting else VolumeRenderer
+    out = cls(cfg, params, mcfg, device=device).render(batch)
+    return {k: v.cpu().numpy().astype(np.float32) for k, v in out.items()
+            if isinstance(v, torch.Tensor)}
 
 
 def benchstack_cfg(cfg_overrides: dict | None = None):
@@ -188,7 +273,10 @@ def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None,
 
 def frame_batch(ctx, H: int, W: int, cam: int = 0):
     """Rays of camera ``cam`` of ``make_cameras(4, H, W)`` that meet the
-    body's world bounds: (batch dotdict, mask_at_box (H*W,) bool)."""
+    body's world bounds: (batch dotdict, mask_at_box (H*W,) bool).  The
+    batch also carries the frame's ``H``, ``W``, camera ``cam_K``,
+    ``cam_R``, ``cam_T`` (m) and ``mask_at_box`` for the ground pass, as
+    ``bench.py:_rays`` does."""
     cams = make_cameras(4, H=H, W=W)
     K, R, T = cams['K'][cam], cams['R'][cam], cams['T'][cam] / 1000.0
     ray_o, ray_d = get_rays(H, W, K, R, T)
@@ -196,7 +284,8 @@ def frame_batch(ctx, H: int, W: int, cam: int = 0):
     ray_d = ray_d.reshape(-1, 3)
     near, far, mab = get_full_near_far(ctx['wbounds'].cpu().numpy(), ray_o, ray_d)
     batch = dotdict(ray_o=ray_o[mab], ray_d=ray_d[mab], near=near[mab],
-                    far=far[mab], ctx=ctx)
+                    far=far[mab], ctx=ctx, H=H, W=W, cam_K=K, cam_R=R, cam_T=T,
+                    mask_at_box=mab)
     return batch, mab
 
 

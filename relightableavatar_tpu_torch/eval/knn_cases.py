@@ -61,16 +61,20 @@ def knn_cases(verts: torch.Tensor, rng) -> list[tuple[str, torch.Tensor, torch.T
 
 
 @contextlib.contextmanager
-def record_knn_inputs(store: dict, sizes=FRAME_BLOCKS, tail: bool = True):
+def record_knn_inputs(store: dict, sizes=FRAME_BLOCKS, tail: bool = True, last: bool = False):
     """While active, the HDQ's KNN calls go through unchanged, and ``store``
     gets a copy of (pts, verts) of the first call at each of ``sizes`` and,
-    with ``tail``, of the first call at any other size ("tail")."""
+    with ``tail``, of the first call at any other size ("tail"); with
+    ``last``, also of the last call at each of ``sizes`` (key ``(size,
+    "last")``)."""
     dispatch = anisdf.knn_top3
 
     def recording(pts, verts):
         key = pts.shape[0] if pts.shape[0] in sizes else "tail"
         if key not in store and (tail or key != "tail"):
             store[key] = (pts.clone(), verts.clone())
+        if last and key != "tail":
+            store[(key, "last")] = (pts.clone(), verts.clone())
         return dispatch(pts, verts)
 
     anisdf.knn_top3 = recording

@@ -1,17 +1,21 @@
-"""Where the time of the exact and the accelerated relight frame goes on the
-card.
+"""Where the time of the port's frames goes on the card.
 
-    python -m relightableavatar_tpu_torch.eval.profile_frame
+    python -m relightableavatar_tpu_torch.eval.profile_frame [NAME ...]
 
-Renders two frames of fixture frame 0, camera 0, ``golden.FRAME_SIZE``
-squared: the exact frame of ``chip_smoke.py``'s frame phase
-(``golden.frame_cfg()``) and ``bench.py``'s ``relight_512_accel_skip`` frame
-(``golden.accel_frame_cfg()``: SDF grid bake, slice sweep, miss skip,
-bfloat16 MLPs).  Each is rendered once to warm up; then ``REPS`` timed
-frames of each in turns (exact, accel, accel, exact, ...); then one frame
-of each with a device sync after every stage (the accelerated frame's
-bake, sweep, miss march, ray blocks and assembly); then one frame of each
-under ``torch.profiler`` with CPU and CUDA activities.  Prints per frame
+Renders frames of fixture frame 0, camera 0, ``golden.FRAME_SIZE`` squared
+(all of them, or the NAMEs given): ``exact``, the exact relight frame of
+``chip_smoke.py``'s frame phase (``golden.frame_cfg()``); ``accel``,
+``bench.py``'s ``relight_512_accel_skip`` (``golden.accel_frame_cfg()``:
+SDF grid bake, slice sweep, miss skip, bfloat16 MLPs); ``sweep``,
+``relight_sweep_8light`` (``golden.sweep_frame_cfg()``: the accel stack
+without the miss skip, 8 lights re-shaded); ``volume`` and ``volume_cull32``,
+``novel_view_512`` and ``novel_view_512_cull32``
+(``golden.volume_frame_cfg()``: the stage-1 network, 128 samples a ray).
+Each is rendered once to warm up; then ``REPS`` timed frames of each in
+turns (forward, then backward, ...); then one frame of each with a device
+sync after every stage (bake, sweep, miss march, ray blocks, assembly; the
+sweep's base pass and re-shade; the volume's cull bake and blocks); then
+one frame of each under ``torch.profiler`` with CPU and CUDA activities.  Prints per frame
 the timed frames' wall times, the union of the profiled frame's device
 activity (its busy time) as a share of the median unprofiled wall time, of
 the profiled wall time and of the span from first to last device activity,
@@ -24,14 +28,18 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from relightableavatar_tpu_torch.data.datasets import load_lighting
 from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.ops import knn_cuda
-from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
+                                                             SphereTracingRenderer)
+from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
 
 REPS = 3    # unprofiled timed frames of each
 TOP = 15    # kernels listed by device time
@@ -120,6 +128,13 @@ def _report(name, renderer, batch, n_rays, walls) -> None:
         print(f"[{name}]   {us / 1e3:10.3f} ms  x{count:6d}  {ev_name[:90]}")
 
 
+FRAMES = (("exact", golden.frame_cfg, SphereTracingRenderer),
+          ("accel", golden.accel_frame_cfg, SphereTracingRenderer),
+          ("sweep", golden.sweep_frame_cfg, NovelLightRenderer),
+          ("volume", golden.volume_frame_cfg, VolumeRenderer),
+          ("volume_cull32", lambda: golden.volume_frame_cfg(32), VolumeRenderer))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
@@ -129,10 +144,15 @@ def main() -> None:
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
 
     frames = {}
-    for name, cfg in (("exact", golden.frame_cfg()), ("accel", golden.accel_frame_cfg())):
+    for name, cfg, cls in FRAMES:
+        if len(sys.argv) > 1 and name not in sys.argv[1:]:
+            continue
+        cfg = cfg()
         ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
-        renderer = SphereTracingRenderer(cfg, params, mcfg, device="cuda")
+        renderer = cls(cfg, params, mcfg, device="cuda")
         batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+        if cls is NovelLightRenderer:
+            batch.novel_lights = load_lighting(cfg)
         _wall(renderer, batch)
         frames[name] = (renderer, batch, int(mab.sum()), [])
     order = list(frames)
@@ -145,10 +165,11 @@ def main() -> None:
         renderer.time_stages = True
         _wall(renderer, batch)
         renderer.time_stages = False
+        lf = renderer.last_frame
         print(f"[{name}] with a device sync after each stage: " + ", ".join(
-            f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in renderer.last_frame.items()
-            if k.endswith('_s')) + f"; ray blocks rendered {renderer.last_frame.blocks_rendered}"
-            f" of {renderer.last_frame.blocks}", flush=True)
+            f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in lf.items() if k.endswith('_s'))
+            + f"; ray blocks rendered {lf.get('blocks_rendered', lf.get('blocks'))}"
+            f" of {lf.get('blocks')}", flush=True)
     for name, (renderer, batch, n_rays, walls) in frames.items():
         _report(name, renderer, batch, n_rays, walls)
 

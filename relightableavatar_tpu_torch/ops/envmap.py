@@ -1,6 +1,6 @@
 """Environment-map utilities (``relightableavatar_tpu/ops/envmap.py``):
-lat-long light grid, equirect bilinear lookup, sRGB transfer
-(reference ``lib/utils/relight_utils.py:106-465``)."""
+lat-long light grid, equirect bilinear lookup, probe rotation, sRGB
+transfer (reference ``lib/utils/relight_utils.py:55-465``)."""
 from __future__ import annotations
 
 import math
@@ -111,3 +111,44 @@ def srgb2linear(srgb: torch.Tensor) -> torch.Tensor:
     lin = srgb / 12.92
     nonlin = torch.pow(srgb, 2.4)
     return torch.where(srgb <= 0.04045, lin, nonlin)
+
+
+def shift_image(image: torch.Tensor, shift: float) -> torch.Tensor:
+    """Horizontal sub-pixel wrap-around shift of an (H, W, C) or (B, H, W, C)
+    image by bilinear resampling (reference ``rotate_envmap``'s
+    ``shift_image``, relight_utils.py:79-99)."""
+    H, W = image.shape[-3:-1]
+    batched = image.dim() == 4
+    if not batched:
+        image = image[None]
+    x = (torch.arange(W, dtype=torch.float32, device=image.device) + 0.5 + shift) % W
+    y = torch.arange(H, dtype=torch.float32, device=image.device) + 0.5
+    yy, xx = torch.meshgrid(y, x, indexing="ij")                   # (H, W)
+    out = torch.stack([_bilinear_sample(im, xx, yy) for im in image])
+    return out if batched else out[0]
+
+
+def rotate_envmap_dict(novel_light: dict, index: int, repeat: int, probe_width: int):
+    """Reference ``rotate_envmap`` (relight_utils.py:55-103): light ``i`` and
+    sub-rotation ``j`` of a flat index; returns (name, envmap dict).  The
+    probes are tensors (or arrays, taken to the CPU as float32 tensors)."""
+    keys = list(novel_light.keys())
+    if repeat <= 0:
+        return keys[index], novel_light[keys[index]]
+    n_rotation = probe_width * repeat
+    i = index // n_rotation
+    j = index % n_rotation
+    name = f'{keys[i]}-{j:04d}'
+    envmap = novel_light[keys[i]]
+    probe = torch.as_tensor(envmap['probe'], dtype=torch.float32)
+    image = torch.as_tensor(envmap['image'], dtype=torch.float32)
+    eW = probe.shape[-2]
+    iW = image.shape[-2]
+    uW = eW * repeat
+    return name, dict(probe=shift_image(probe, eW / uW * j),
+                      image=shift_image(image, iW / uW * j))
+
+
+def reflect(ray_d: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
+    dot = torch.sum(ray_d * norm, dim=-1, keepdim=True)
+    return 2 * (norm * dot) - ray_d

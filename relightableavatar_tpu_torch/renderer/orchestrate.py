@@ -1,42 +1,51 @@
 """Frame orchestration (``relightableavatar_tpu/renderer/orchestrate.py``):
-envmap selection, ray padding and blocking, the per-frame SDF grid bake and
-slice sweep, the frame-global miss skip, per-block render, assembly.
-
-``SphereTracingRenderer.render`` only: no ground pass, no novel-light sweep
-and no fused frame (reference ``Renderer`` :943-1115).
+envmap selection (learned or ``replace_light``), ray padding and blocking,
+the per-frame SDF grid bake and slice sweep, the frame-global miss skip,
+per-block render, assembly, the full-frame ground pass, and the novel-light
+sweep that traces geometry and visibility once and re-shades per light
+(reference ``sphere_tracing_renderer.py:1066-1115`` and
+``novel_light_sphere_tracing.py:21-221``).  No fused frame
+(``tpu.frame_fuse`` raises).
 """
 from __future__ import annotations
 
+import math
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.data.rays import get_rays
 from relightableavatar_tpu_torch.device import resolve_device
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.aabb import pad_box
-from relightableavatar_tpu_torch.ops.envmap import gen_light_xyz
+from relightableavatar_tpu_torch.ops.brdf import evaluate_shade, microfacet_brdf, safe_divide
+from relightableavatar_tpu_torch.ops.envmap import (gen_light_xyz, linear2srgb, probe_at_texels,
+                                                    rotate_envmap_dict, sample_envmap_image)
+from relightableavatar_tpu_torch.ops.lbs import normalize
 from relightableavatar_tpu_torch.ops.lvis_sweep import sweep_ratio_volume
 from relightableavatar_tpu_torch.ops.sdf_grid import (axis_resolutions, build_hdq_grid,
                                                       grid_sdf_lower_bound, pack_grid_corners)
+from relightableavatar_tpu_torch.renderer.ground import render_ground_block
 from relightableavatar_tpu_torch.renderer.sphere_tracing import (
     RelightRenderConfig, render_human_block)
 from relightableavatar_tpu_torch.renderer.tracing import STConfig, safe_miss_march
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
 
-def _pad_rays(ray_o, ray_d, near, far, block):
+def pad_rays(ray_o, ray_d, near, far, block, far_pad: float = 0.11):
     """Pad the ray arrays (numpy) to a multiple of ``block`` with short
-    dummy rays; returns them and the real count."""
+    dummy rays from the origin along +z over [0.1, ``far_pad``] (the volume
+    renderer's reach to 0.2); returns them and the real count."""
     P = len(ray_o)
     pad = (-P) % block
     if pad:
         ray_o = np.concatenate([ray_o, np.zeros((pad, 3), np.float32)])
         ray_d = np.concatenate([ray_d, np.tile([[0, 0, 1.0]], (pad, 1)).astype(np.float32)])
         near = np.concatenate([near, np.full(pad, 0.1, np.float32)])
-        far = np.concatenate([far, np.full(pad, 0.11, np.float32)])
+        far = np.concatenate([far, np.full(pad, far_pad, np.float32)])
     return ray_o, ray_d, near, far, P
 
 
@@ -60,14 +69,13 @@ class SphereTracingRenderer:
     ``params`` and the batch's ``ctx`` hold tensors on ``device``; ray
     arrays in the batch may be numpy.  With ``time_stages`` set, ``render``
     synchronises the device after each stage and records the stages' wall
-    seconds in ``last_frame``."""
+    seconds in ``last_frame``; ``last_frame.shadow_rays`` counts the ground
+    pass's traced shadow rays."""
 
     def __init__(self, cfg, params, mcfg: AniSDFConfig, device="cuda"):
         if cfg.get('bruteforce_st', False):
             raise NotImplementedError(
                 "bruteforce_st is broken in the reference and not built")
-        if cfg.vis_ground_shading:
-            raise NotImplementedError("vis_ground_shading (the ground pass) is not ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -146,9 +154,17 @@ class SphereTracingRenderer:
                                int(self.rcfg.surf_skip_iters))
 
     # ------------------------------------------------------------- envmap
+    def to_device(self, a) -> torch.Tensor:
+        """A probe or image (numpy or tensor) as a float32 tensor on the device."""
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
     def select_envmap(self, batch):
+        """The light of the frame: ``batch.novel_lights[cfg.replace_light]``
+        when that is set (its arrays moved to the device), else the learned
+        env map, else None."""
         if self.cfg.replace_light and 'novel_lights' in batch:
-            raise NotImplementedError("replace_light (novel lights) is not ported")
+            env = batch.novel_lights[self.cfg.replace_light]
+            return dotdict({k: self.to_device(v) for k, v in env.items()})
         if 'env' in self.params:
             return dotdict(probe=anisdf.global_env_map(self.params, self.mcfg))
         return None
@@ -188,7 +204,7 @@ class SphereTracingRenderer:
         far = np.asarray(batch.far, np.float32).reshape(-1)
         near = np.clip(near, cfg.clip_near, None)
         far = np.clip(far, None, cfg.clip_far)
-        ray_o, ray_d, near, far, P = _pad_rays(ray_o, ray_d, near, far, self.block)
+        ray_o, ray_d, near, far, P = pad_rays(ray_o, ray_d, near, far, self.block)
         if P == 0:
             return dotdict(rgb_map=torch.zeros((0, 3), device=dev),
                            acc_map=torch.zeros((0,), device=dev), envmap=envmap)
@@ -258,4 +274,369 @@ class SphereTracingRenderer:
             self._term_sdf_sum += ret.pop('term_sdf_sum')
             self._term_sdf_cnt += ret.pop('term_sdf_cnt')
             print(f'avg sdf abs: {self._term_sdf_sum / max(self._term_sdf_cnt, 1.0):.8f}')
+
+        if cfg.vis_ground_shading and 'H' in batch:
+            t0 = time.perf_counter()
+            ret = self._render_ground(batch, ret, envmap)
+            self._stage('ground', t0)
+        return ret
+
+    # ------------------------------------------------------------- ground
+    def _render_ground(self, batch, ret, envmap, mutate_mask: bool = True) -> dotdict:
+        """Full-frame ground pass and alpha blend (reference
+        sphere_tracing_renderer.py:1084-1113, blend_output_): every pixel of
+        the H x W frame hits the ground plane, and each map becomes
+        human x acc (scattered to the frame) + ground x (1 - acc).  The batch
+        carries ``H``, ``W``, ``cam_K``, ``cam_R``, ``cam_T`` and the flat
+        ``mask_at_box`` of the rays in ``ret``.  ``acc_map`` becomes all ones,
+        and with ``mutate_mask`` ``batch.mask_at_box`` becomes the full frame;
+        ``mutate_mask=False`` keeps it, so the pass can run once per novel
+        light against the same base."""
+        cfg = self.cfg
+        dev = self.device
+        H, W = int(batch.H), int(batch.W)
+        F = H * W
+        ray_o, ray_d = get_rays(H, W, np.asarray(batch.cam_K), np.asarray(batch.cam_R),
+                                np.asarray(batch.cam_T))
+        ray_o = ray_o.reshape(F, 3)
+        ray_d = ray_d.reshape(F, 3)
+
+        # the body's alpha over the full frame; the ground sees its complement
+        mab = torch.as_tensor(np.asarray(batch.mask_at_box).reshape(F), device=dev)
+        acc = ret.acc_map
+        acc_full = acc.new_zeros(F)
+        acc_full[mab] = acc
+        bg_alpha = 1.0 - acc_full
+
+        st_env = STConfig.from_cfg({**dict(cfg.sphere_tracing), **dict(cfg.env_lvis)},
+                                   clay_book=not cfg.no_claybook)
+        probe = envmap.probe if envmap is not None else torch.ones(
+            (cfg.env_h, cfg.env_w, 3), device=dev)
+        if probe.dim() == 4:
+            probe = probe[0]
+        image = envmap.get('image', None) if envmap is not None else None
+        if image is not None and image.dim() == 4:
+            image = image[0]
+        vec = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        g_norm, g_orig, g_albedo = vec(cfg.ground_normal), vec(cfg.ground_origin), \
+            vec(cfg.ground_albedo)
+
+        pad = (-F) % self.block
+        ro = torch.as_tensor(np.concatenate([ray_o, np.zeros((pad, 3), np.float32)]), device=dev)
+        rd = torch.as_tensor(np.concatenate(
+            [ray_d, np.tile([[0, 0, 1.0]], (pad, 1)).astype(np.float32)]), device=dev)
+        af = torch.cat([bg_alpha, bg_alpha.new_zeros(pad)])
+        stats = {}
+        grounds = []
+        for i in range(0, F + pad, self.block):
+            s = slice(i, i + self.block)
+            grounds.append(render_ground_block(
+                self.params, self.mcfg, batch.ctx, ro[s], rd[s], af[s], probe,
+                image if image is not None else probe, self.light_xyz, self.light_area,
+                self.light_sharp, g_norm, g_orig, g_albedo, st_env, self.rcfg,
+                bool(cfg.ground_attach_envmap), stats=stats))
+        self.last_frame.shadow_rays = self.last_frame.get('shadow_rays', 0) + \
+            stats.get('shadow_rays', 0)
+
+        merged = dotdict(ret)
+        for k in _GROUND_BLEND_KEYS:
+            if k not in grounds[0]:
+                continue
+            gv = torch.cat([g[k] for g in grounds], dim=0)[:F]
+            full = torch.zeros_like(gv)
+            if k in ret:
+                a = acc if ret[k].dim() == 1 else acc[:, None]
+                full[mab] = ret[k] * a
+            merged[k] = full + gv * (bg_alpha if gv.dim() == 1 else bg_alpha[:, None])
+        merged.acc_map = torch.ones(F, dtype=acc.dtype, device=dev)
+        if mutate_mask:
+            batch.mask_at_box = np.ones((H, W), bool)
+        merged.envmap = envmap
+        return merged
+
+
+# the maps the ground pass blends under the body (reference blend_output_)
+_GROUND_BLEND_KEYS = ('rgb_map', 'surf_map', 'albedo_map', 'roughness_map', 'norm_map',
+                      'cpts_map', 'bpts_map', 'spec_map', 'depth_map', 'shade_map')
+
+
+# ---------------------------------------------------------------- re-shade
+def reshade_dense(surf, norm, albedo, roughness, lvis, ldot, acc, ray_o,
+                  probe, light_xyz, light_area, rcfg: RelightRenderConfig) -> dotdict:
+    """Re-shade in the reference's layout: the plain (P, L, 3) composition
+    of microfacet_brdf and evaluate_shade (novel_light_sphere_tracing.py:21-98).
+    The oracle of :func:`reshade_block`; its (P, L, 3) buffers make it the
+    memory-heavy form, so the sweep does not run it."""
+    P = surf.shape[0]
+    L = light_xyz.shape[0] * light_xyz.shape[1]
+    xyz = light_xyz.reshape(L, 3)
+    area = light_area.reshape(L)
+
+    surf2light = normalize(xyz[None, :, :] - surf[:, None, :])
+    surf2cam = normalize(ray_o - surf)
+    if rcfg.distant_envmap:
+        light = probe_at_texels(probe, light_xyz)[None].expand(P, L, 3)
+    else:
+        light = sample_envmap_image(probe, surf2light)
+
+    ldot_shade = torch.ones_like(ldot) if rcfg.cancel_cosine else ldot
+    shade = evaluate_shade(lvis, ldot_shade, area, light)
+    brdf = microfacet_brdf(surf2light, surf2cam, norm, albedo, roughness,
+                           f0=rcfg.fresnel_f0, lambert_only=rcfg.lambert_only,
+                           glossy_only=rcfg.glossy_only, cancel_cosine=rcfg.cancel_cosine)
+    rgb = torch.sum(brdf * shade, dim=-2)
+    if rcfg.tonemapping:
+        rgb = linear2srgb(rgb)
+    rgb = rgb * acc[:, None]
+
+    shade_map = torch.sum(evaluate_shade(lvis, ldot, area, light), dim=-2)
+    shade_map = shade_map * rcfg.shading_albedo / np.pi * acc[:, None]
+    return dotdict(rgb_map=rgb, shade_map=shade_map)
+
+
+def _reshade_weights(surf, norm, albedo, roughness, lvis, ldot, ray_o,
+                     light_xyz, light_area, rcfg: RelightRenderConfig):
+    """The probe-independent part of the re-shade: per (point, texel)
+    contraction weights, each (P, L) with the texels minor.  They depend
+    only on the cached geometry and visibility, so a sweep of K lights
+    computes them once.
+
+    Returns (A, B, w2, sx, sy, sz): glossy, lambert and shade-map weights
+    and the normalised surface-to-light components the equirect lookup of a
+    non-distant envmap needs."""
+    L = light_xyz.shape[0] * light_xyz.shape[1]
+    xyz = light_xyz.reshape(L, 3)
+    area = light_area.reshape(L)
+
+    sx = xyz[None, :, 0] - surf[:, 0, None]
+    sy = xyz[None, :, 1] - surf[:, 1, None]
+    sz = xyz[None, :, 2] - surf[:, 2, None]
+    inv = torch.rsqrt(sx * sx + sy * sy + sz * sz + 1e-16)     # normalize eps 1e-8
+    sx, sy, sz = sx * inv, sy * inv, sz * inv
+    # the brdf normalises its inputs again at eps 1e-7 (microfacet_brdf)
+    inv = torch.rsqrt(sx * sx + sy * sy + sz * sz + 1e-14)
+    lx, ly, lz = sx * inv, sy * inv, sz * inv
+
+    pts2c = normalize(normalize(ray_o - surf), eps=1e-7)       # (P, 3)
+    n = normalize(norm, eps=1e-7)
+    vx, vy, vz = pts2c[:, 0:1], pts2c[:, 1:2], pts2c[:, 2:3]   # (P, 1)
+    nx, ny, nz = n[:, 0:1], n[:, 1:2], n[:, 2:3]
+
+    l_dot_n = torch.clamp(lx * nx + ly * ny + lz * nz, 1e-4, 1.0)             # (P, L)
+    v_dot_n = torch.clamp(torch.sum(pts2c * n, dim=-1, keepdim=True), 1e-4, 1.0)
+
+    hx, hy, hz = lx + vx, ly + vy, lz + vz                     # half vector
+    hinv = torch.rsqrt(hx * hx + hy * hy + hz * hz + 1e-14)
+    hx, hy, hz = hx * hinv, hy * hinv, hz * hinv
+
+    alpha = roughness ** 2                                     # (P, 1)
+    cos_lh = lx * hx + ly * hy + lz * hz
+    f0 = rcfg.fresnel_f0
+    fres = f0 + (1 - f0) * (1 - cos_lh) ** 5
+    cos_theta_m = hx * nx + hy * ny + hz * nz
+    chi_d = (cos_theta_m > 0).to(cos_theta_m.dtype)
+    cos_m_sq = torch.square(cos_theta_m)
+    tan_m_sq = safe_divide(1 - cos_m_sq, cos_m_sq)
+    denom_d = math.pi * torch.square(cos_m_sq) * torch.square(alpha ** 2 + tan_m_sq)
+    dist = safe_divide(alpha ** 2 * chi_d, denom_d)
+
+    cos_theta_v = torch.sum(n * pts2c, dim=-1, keepdim=True)   # (P, 1)
+    cos_theta = hx * vx + hy * vy + hz * vz
+    div = safe_divide(cos_theta, cos_theta_v)
+    chi_g = (div > 0).to(div.dtype)
+    cos_v_sq = torch.clamp(torch.square(cos_theta_v), 0.0, 1.0)
+    tan_v_sq = torch.clamp(safe_divide(1 - cos_v_sq, cos_v_sq), 0.0, 1e10)
+    denom_g = 1 + torch.sqrt(1 + alpha ** 2 * tan_v_sq)
+    g = safe_divide(chi_g * 2, denom_g)
+
+    ldn = torch.ones_like(l_dot_n) if rcfg.cancel_cosine else l_dot_n
+    micro = safe_divide(fres * g * dist, 4 * torch.abs(ldn) * torch.abs(v_dot_n))
+    lamb = (l_dot_n / math.pi) if rcfg.cancel_cosine \
+        else torch.full_like(l_dot_n, 1.0 / math.pi)
+
+    ldot_shade = torch.ones_like(ldot) if rcfg.cancel_cosine else ldot
+    w = lvis * ldot_shade * area[None, :]                      # (P, L)
+    w2 = lvis * ldot * area[None, :]                           # shade-map weights
+    return micro * w, lamb * w, w2, sx, sy, sz
+
+
+def _equirect_contract(img, A, B, w2, sx, sy, sz):
+    """Contract the (P, L) weight planes against the bilinear equirect
+    lookup of ``img`` in each (point, texel) direction, without building
+    the (P, L, 3) light.  Returns (sumA, sumB, shade_sum), each (P, 3)."""
+    eH, eW = img.shape[:2]
+    sn = torch.sqrt(sx * sx + sy * sy + sz * sz)
+    dz = sz / (sn + 1e-13)
+    theta = torch.arccos(torch.clamp(dz, -1.0, 1.0)) - 1e-6
+    phi = torch.atan2(sy, sx)           # scale-invariant: sy / sx == dy / dx
+    px = (-phi / math.pi + 1) * 0.5 * eW
+    py = (theta / math.pi) * eH
+    x0 = torch.floor(px - 0.5)
+    y0 = torch.floor(py - 0.5)
+    wx = (px - 0.5) - x0
+    wy = (py - 0.5) - y0
+    x0l, y0l = x0.to(torch.int64), y0.to(torch.int64)
+    x0i, x1i = x0l.clamp(0, eW - 1), (x0l + 1).clamp(0, eW - 1)
+    y0i, y1i = y0l.clamp(0, eH - 1), (y0l + 1).clamp(0, eH - 1)
+    sums = []
+    for wgt in (A, B, w2):
+        ch = []
+        for c in range(3):
+            pc = img[..., c]
+            lc = ((pc[y0i, x0i] * (1 - wx) + pc[y0i, x1i] * wx) * (1 - wy)
+                  + (pc[y1i, x0i] * (1 - wx) + pc[y1i, x1i] * wx) * wy)
+            ch.append(torch.sum(wgt * lc, dim=-1))
+        sums.append(torch.stack(ch, dim=-1))                   # (P, 3)
+    return sums
+
+
+def _finish_reshade(sumA, sumB, shade_sum, albedo, acc, rcfg: RelightRenderConfig) -> dotdict:
+    """Lobes, tone mapping and the body's alpha of the contracted sums;
+    ``albedo`` and ``acc`` broadcast against them."""
+    if rcfg.lambert_only:
+        rgb = albedo * sumB
+    elif rcfg.glossy_only:
+        rgb = sumA
+    else:
+        rgb = sumA + albedo * sumB
+    if rcfg.tonemapping:
+        rgb = linear2srgb(rgb)
+    rgb = rgb * acc
+    shade_map = shade_sum * rcfg.shading_albedo / np.pi * acc
+    return dotdict(rgb_map=rgb, shade_map=shade_map)
+
+
+@torch.no_grad()
+def reshade_block(surf, norm, albedo, roughness, lvis, ldot, acc, ray_o,
+                  probe, light_xyz, light_area, rcfg: RelightRenderConfig) -> dotdict:
+    """Re-shade cached geometry and visibility under a new envmap with the
+    light axis contracted: the GGX lobe does not depend on the channel and
+    the lambert lobe separates as albedo_c x B, so
+
+        rgb_c = sum_L glossy w light_c + albedo_c sum_L lambert w light_c,
+
+    which under a distant envmap is (P, L) @ (L, 3) products (float32; TF32
+    is off on the card).  Same normalize eps chain and safe_divide clamps
+    as :func:`reshade_dense`."""
+    A, B, w2, sx, sy, sz = _reshade_weights(surf, norm, albedo, roughness, lvis, ldot,
+                                            ray_o, light_xyz, light_area, rcfg)
+    if rcfg.distant_envmap:
+        lt = probe_at_texels(probe, light_xyz)                 # (L, 3)
+        sumA, sumB, shade_sum = A @ lt, B @ lt, w2 @ lt
+    else:
+        img = probe[0] if probe.dim() == 4 else probe
+        sumA, sumB, shade_sum = _equirect_contract(img, A, B, w2, sx, sy, sz)
+    return _finish_reshade(sumA, sumB, shade_sum, albedo, acc[:, None], rcfg)
+
+
+@torch.no_grad()
+def reshade_sweep_block(surf, norm, albedo, roughness, lvis, ldot, acc, ray_o, probes,
+                        light_xyz, light_area, rcfg: RelightRenderConfig) -> dotdict:
+    """Re-shade under K envmaps at once: ``probes`` (K, eH, eW, 3) -> maps
+    (K, P, 3).  The weights are computed once; under a distant envmap the K
+    probes' (L, 3) texel colours stack into (L, 3K) and the sweep is three
+    (P, L) @ (L, 3K) products.  Other probes keep one equirect contraction
+    each."""
+    K = probes.shape[0]
+    P = surf.shape[0]
+    A, B, w2, sx, sy, sz = _reshade_weights(surf, norm, albedo, roughness, lvis, ldot,
+                                            ray_o, light_xyz, light_area, rcfg)
+    if rcfg.distant_envmap:
+        lt = torch.stack([probe_at_texels(p, light_xyz) for p in probes])   # (K, L, 3)
+        LT = lt.permute(1, 0, 2).reshape(lt.shape[1], K * 3)
+        sumA, sumB, shade = [(m @ LT).reshape(P, K, 3).permute(1, 0, 2) for m in (A, B, w2)]
+    else:
+        sums = [_equirect_contract(img, A, B, w2, sx, sy, sz) for img in probes]
+        sumA, sumB, shade = [torch.stack([s[i] for s in sums]) for i in range(3)]
+    return _finish_reshade(sumA, sumB, shade, albedo[None], acc[None, :, None], rcfg)
+
+
+class NovelLightRenderer(SphereTracingRenderer):
+    """Relight sweep: one geometry and visibility pass, then a re-shade per
+    light (reference novel_light_sphere_tracing.Renderer :103-221).
+
+    ``batch.novel_lights`` maps names to envmaps (``probe``, ``image``;
+    numpy or tensors).  With ``cfg.vis_rotate_light`` each light becomes
+    ``env_w x rotate_ratio`` probes rotated in longitude.  Returns the base
+    pass's maps, ``base``, ``diff`` (the base pass's seconds, the device
+    synchronised) and ``novel_light``: name -> maps on the device."""
+
+    CHUNK = 32      # lights a reshade_sweep_block call
+
+    @torch.no_grad()
+    def render(self, batch) -> dotdict:
+        cfg = self.cfg
+        dev = self.device
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+        # the cached maps the re-shade reads; the frame-global miss skip
+        # declines under them
+        self.rcfg = self.rcfg._replace(want_light_maps=True)
+
+        # ground shading depends on the envmap: it moves to the per-light
+        # loop, and the base pass keeps maps of the rays in the box
+        ground = bool(cfg.vis_ground_shading and 'H' in batch)
+        if ground:
+            cfg.vis_ground_shading = False
+        sync()
+        t0 = time.perf_counter()
+        try:
+            base = super().render(batch)
+        finally:
+            if ground:
+                cfg.vis_ground_shading = True
+        sync()
+        net_time = time.perf_counter() - t0
+        self.last_frame.base_s = net_time
+        ret = dotdict(diff=net_time, base=base)
+
+        surf, norm, albedo = base.surf_map, base.norm_map, base.albedo_map
+        rough = base.roughness_map[..., None]
+        lvis, ldot, acc = base.lvis_map, base.ldot_map, base.acc_map
+        ray_o = self.to_device(np.asarray(batch.ray_o, np.float32).reshape(-1, 3))
+
+        lights = {name: dotdict({k: self.to_device(v) for k, v in env.items()})
+                  for name, env in batch.get('novel_lights', {}).items()}
+        names = list(lights)
+        rotate = int(cfg.rotate_ratio) if cfg.vis_rotate_light else 0
+        n_total = len(names) * cfg.env_w * rotate if rotate > 0 else len(names)
+        entries = []
+        for idx in range(n_total):
+            if rotate > 0:
+                name, envmap = rotate_envmap_dict(lights, idx, rotate, cfg.env_w)
+            else:
+                name, envmap = names[idx], lights[names[idx]]
+            p = envmap['probe']
+            entries.append((name, p[0] if p.dim() == 4 else p, envmap))
+
+        t0 = time.perf_counter()
+        novel = dotdict()
+        for s in range(0, len(entries), self.CHUNK):
+            chunk = entries[s:s + self.CHUNK]
+            maps = reshade_sweep_block(surf, norm, albedo, rough, lvis, ldot, acc, ray_o,
+                                       torch.stack([p for _, p, _ in chunk]),
+                                       self.light_xyz, self.light_area, self.rcfg)
+            for j, (name, p, envmap) in enumerate(chunk):
+                frame = dotdict(rgb_map=maps.rgb_map[j], shade_map=maps.shade_map[j],
+                                albedo_map=albedo, norm_map=norm, acc_map=acc,
+                                envmap=dotdict(probe=p))
+                if ground:
+                    # the ground's shading and attached albedo depend on the light
+                    sub = dotdict(base)
+                    sub.rgb_map = maps.rgb_map[j]
+                    sub.shade_map = maps.shade_map[j]
+                    merged = self._render_ground(batch, sub, dotdict(envmap),
+                                                 mutate_mask=False)
+                    for k in ('rgb_map', 'shade_map', 'albedo_map', 'norm_map', 'acc_map'):
+                        frame[k] = merged[k]
+                novel[name] = frame
+        sync()
+        self.last_frame.reshade_s = time.perf_counter() - t0
+        self.last_frame.lights = len(entries)
+        ret.novel_light = novel
+        if ground:
+            # the top-level maps under the frame's own envmap, over the
+            # ground; the mask becomes the full frame, as the per-light maps are
+            base = self._render_ground(batch, base, base.envmap, mutate_mask=True)
+        ret.update({k: v for k, v in base.items() if k.endswith('_map')})
+        ret.envmap = base.envmap
         return ret

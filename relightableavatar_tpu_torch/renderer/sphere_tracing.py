@@ -35,10 +35,12 @@ from relightableavatar_tpu_torch.renderer.tracing import (STConfig, sphere_trace
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
 # cfg.tpu options that are not ported, with the value that means "off";
-# turning one on raises instead of being ignored
+# turning one on raises instead of being ignored (tpu.volume_cull is the
+# volume renderer's, renderer/volume.py, and this path ignores it as the
+# JAX package's does)
 _UNPORTED_TPU = {
     'surf_grid_iters': 0, 'shadow_compact': 0.0, 'shadow_skip_resd': False,
-    'shadow_verts_sub': 1, 'frame_fuse': False, 'volume_cull': 0,
+    'shadow_verts_sub': 1, 'frame_fuse': False,
 }
 
 
@@ -140,7 +142,8 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
                      sharp: torch.Tensor,  # (L,)
                      bbox: torch.Tensor,   # (2, 3)
                      lv: STConfig, rcfg: RelightRenderConfig,
-                     soft_shadow: bool = True, sdf_override=None):
+                     soft_shadow: bool = True, sdf_override=None,
+                     stats: dict | None = None):
     """lvis (P, L), ldot (P, L) (sphere_tracing_renderer.py:265-344).
 
     Only the active shadow rays (front-facing texel of a hit pixel whose ray
@@ -148,7 +151,8 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
     the trace is independent of the others, so this equals the JAX
     package's sorted block skip (``sphere_tracing.py:201-237``) and its
     masked trace of every ray on the SDF grid.  ``sdf_override`` replaces
-    the HDQ SDF (the grid lookup; ``bbox`` is then the grid's box)."""
+    the HDQ SDF (the grid lookup; ``bbox`` is then the grid's box).
+    ``stats['shadow_rays']``, when given, adds the number of rays traced."""
     P = surf.shape[0]
     L = xyz.shape[0]
 
@@ -176,6 +180,8 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
                                  dist_th=lv.dist_th))
     occ = torch.ones((F, 1), dtype=surf.dtype, device=surf.device)
     sel_all = torch.nonzero(active[:, 0]).squeeze(1)
+    if stats is not None:
+        stats['shadow_rays'] = stats.get('shadow_rays', 0) + sel_all.shape[0]
     blk = min(rcfg.shadow_block, F)
     for s in range(0, sel_all.shape[0], blk):
         sel = sel_all[s:s + blk]

@@ -61,12 +61,18 @@ def params_from_flat(flat: dict, device="cuda",
                      mcfg: AniSDFConfig | None = None) -> dict:
     """Flat ``"a/b/c"``-keyed arrays -> nested parameter dict of float32
     tensors on ``device`` (numeric path parts become list positions).
-    ``mcfg`` defaults to the relight network of the fixture avatar.  Raises
-    on a missing key, an unknown key or a shape mismatch."""
+    ``mcfg`` defaults to the relight network of the fixture avatar.  A
+    stage-1 ``mcfg`` (``relight=False``) leaves out the relight heads
+    (``albedo``, ``roughness``, ``env``) of a stage-2 checkpoint, as the JAX
+    package's template load does.  Raises on a missing key, an unknown key
+    or a shape mismatch."""
     dev = resolve_device(device)
     if mcfg is None:
         mcfg = AniSDFConfig(relight=True)
     expected = param_shapes(mcfg)
+    if not mcfg.relight:
+        relight_only = set(param_shapes(mcfg._replace(relight=True))) - set(expected)
+        flat = {k: v for k, v in flat.items() if k not in relight_only}
     missing = sorted(set(expected) - set(flat))
     unknown = sorted(set(flat) - set(expected))
     if missing:

@@ -1,7 +1,8 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
 plain version on the card, the relight render on the card, the slice sweep
-and the bfloat16 MLP route on the card against the CPU, and the bench-stack
-golden.  They skip with a reason where torch finds no CUDA device; on the
+and the bfloat16 MLP route on the card against the CPU, the bench-stack
+golden, and the novel-light sweep, the ground frame and the volume frame
+on the card against the CPU.  They skip with a reason where torch finds no CUDA device; on the
 card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
 import pytest
@@ -13,7 +14,9 @@ from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops import mlp
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
-from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
+from relightableavatar_tpu_torch.data.datasets import load_lighting
+from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
+                                                             SphereTracingRenderer)
 
 pytestmark = pytest.mark.gpu
 
@@ -148,3 +151,50 @@ def test_benchstack_golden_on_the_card(cuda):
     skip, n2 = golden.render_benchstack_64(device=cuda, cfg_overrides={'surf_miss_skip': True})
     assert n2 == n
     np.testing.assert_allclose(skip, img, atol=1e-5, rtol=0)
+
+
+# the small frames on the card against the CPU: float32 both, TF32 off; the
+# MLP sums run in another order, which a trace can turn into a changed
+# silhouette pixel (chip_smoke.py's CARD_CPU_MIN_PSNR)
+CARD_CPU_MIN_PSNR = 50.0
+
+
+def _held(card: dict, cpu: dict, skip=("spec_map",)):
+    assert set(card) == set(cpu)
+    for k in cpu:
+        assert card[k].shape == cpu[k].shape, k
+        if k not in skip:
+            assert golden.psnr(card[k], cpu[k]) >= CARD_CPU_MIN_PSNR, k
+
+
+def test_sweep_on_the_card_equals_the_cpu(cuda):
+    """The 32x32 bench-stack frame (48-node grid) with the 8 sweep lights
+    through NovelLightRenderer on the card and on the CPU."""
+    maps = []
+    for dev in (cuda, "cpu"):
+        cfg = golden.benchstack_cfg()
+        cfg.vis_novel_light = True
+        cfg.test_light = list(golden.SWEEP_LIGHTS)
+        ctx, params, mcfg = golden.load_fixture(cfg, device=dev)
+        batch, _ = golden.frame_batch(ctx, golden.CHECK_SIZE, golden.CHECK_SIZE)
+        batch.novel_lights = load_lighting(cfg)
+        out = NovelLightRenderer(cfg, params, mcfg, device=dev).render(batch)
+        maps.append({f"{n} {k}": f[k].cpu().numpy() for n, f in out.novel_light.items()
+                     for k in ('rgb_map', 'shade_map')})
+    assert len(maps[1]) == 16
+    _held(*maps)
+
+
+def test_ground_frame_on_the_card_equals_the_cpu(cuda):
+    card = golden.render_check_frame(golden.ground_check_cfg(), device=cuda)
+    cpu = golden.render_check_frame(golden.ground_check_cfg(), device="cpu")
+    assert card['rgb_map'].shape == (golden.CHECK_SIZE ** 2, 3) and (card['acc_map'] == 1).all()
+    _held(card, cpu)
+
+
+@pytest.mark.parametrize("cull", [0, 32])
+def test_volume_frame_on_the_card_equals_the_cpu(cuda, cull):
+    card = golden.render_check_frame(golden.volume_check_cfg(cull), device=cuda)
+    cpu = golden.render_check_frame(golden.volume_check_cfg(cull), device="cpu")
+    assert card['acc_map'].max() > 0.5
+    _held(card, cpu, skip=())

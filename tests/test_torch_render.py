@@ -27,6 +27,7 @@ from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
 from relightableavatar_tpu_torch.renderer.sphere_tracing import render_human_block
+from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
 from relightableavatar_tpu_torch.weights import load_params
 
 MIN_PSNR = 50.0
@@ -160,8 +161,7 @@ UNPORTED = [('tpu', 'surf_grid_iters', 8),
             ('tpu', 'shadow_compact', 0.5), ('tpu', 'shadow_skip_resd', True),
             ('tpu', 'shadow_verts_sub', 4), ('tpu', 'knn_impl', 'grouped'),
             ('tpu', 'knn_impl', 'xla'), ('tpu', 'frame_fuse', True),
-            ('tpu', 'volume_cull', 32), (None, 'e_type', 'hash'),
-            (None, 'ablate_hdq_mode', 'world'), (None, 'vis_ground_shading', True)]
+            (None, 'e_type', 'hash'), (None, 'ablate_hdq_mode', 'world')]
 
 
 @pytest.mark.parametrize("node,key,value", UNPORTED,
@@ -176,27 +176,43 @@ def test_unported_options_raise(fixture_scene, node, key, value):
 
 # options that raised before they were ported; each now builds a renderer
 # and renders a frame to finite maps (their parity with the JAX package:
-# test_torch_accel.py, test_torch_bf16.py, test_torch_frame.py)
-PORTED = [('shadow_grid', 17), ('lvis_sweep', True), ('surf_miss_skip', True),
-          ('bf16_mlp', True), ('bf16_act', True)]
+# test_torch_accel.py, test_torch_bf16.py, test_torch_frame.py,
+# test_torch_volume.py, test_torch_ground.py, test_torch_novel_light.py).
+# tpu.volume_cull is the volume renderer's: it renders the stage-1 network
+# through VolumeRenderer (SphereTracingRenderer ignores it, as the JAX
+# package's does); vis_ground_shading renders the whole 16x16 frame
+PORTED = [('tpu', 'shadow_grid', 17), ('tpu', 'lvis_sweep', True),
+          ('tpu', 'surf_miss_skip', True), ('tpu', 'bf16_mlp', True),
+          ('tpu', 'bf16_act', True), ('tpu', 'volume_cull', 32),
+          (None, 'vis_ground_shading', True)]
 
 
-@pytest.mark.parametrize("key,value", PORTED, ids=[f"{k}={v}" for k, v in PORTED])
-def test_ported_options_render(fixture_scene, key, value):
+@pytest.mark.parametrize("node,key,value", PORTED, ids=[f"{k}={v}" for _, k, v in PORTED])
+def test_ported_options_render(fixture_scene, node, key, value):
     cfg, ctx, params, _ = fixture_scene
     cfg = cfg.clone()
     cfg.sphere_tracing.iter = 6
     cfg.obj_lvis.iter = 2
+    cfg.env_lvis.iter = 2
     cfg.tpu.lvis_downscale = 8
     cfg.tpu.ray_block = 64
-    cfg.tpu[key] = value
+    (cfg[node] if node else cfg)[key] = value
     if key in ('lvis_sweep', 'surf_miss_skip'):
         cfg.tpu.shadow_grid = 17            # the grid these options read
-    renderer = SphereTracingRenderer(cfg, params, AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8),
-                                     device="cpu")
     batch, mab = golden.frame_batch(ctx, 16, 16)
+    n = 16 * 16 if key == 'vis_ground_shading' else int(mab.sum())
+    if key == 'volume_cull':
+        cfg.relighting = False
+        cfg.n_samples = 64
+        cfg.tpu.volume_grid = 17
+        _, params, mcfg = golden.load_fixture(cfg, device="cpu")   # the stage-1 network
+        renderer = VolumeRenderer(cfg, params, mcfg, device="cpu")
+    else:
+        renderer = SphereTracingRenderer(cfg, params,
+                                         AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8),
+                                         device="cpu")
     out = renderer.render(batch)
-    assert out.rgb_map.shape == (int(mab.sum()), 3)
+    assert out.rgb_map.shape == (n, 3)
     assert (out.acc_map > 0).any()
     for k, v in out.items():
         if isinstance(v, torch.Tensor):
