@@ -14,7 +14,8 @@ Phases, each printing one flushed line with its wall seconds:
           duplicated cloud, points on the vertices, a cloud 1 km away);
           CUDA-event timings of runs of back-to-back calls (plain, kernel,
           kernel, plain in turns) and the torch.cdist + topk yardstick at
-          P = 32768, and the kernel alone at each of the frame's block sizes
+          P = 32768, and the kernel, the plain version and cdist + topk at
+          each of the frame's block sizes
   golden  the fixture's 256-ray golden bundle, >= 50 dB against
           tests/golden_relight_24px.npy
   frame   one exact relight frame of fixture frame 0 (camera 0, 512x512,
@@ -54,7 +55,19 @@ Phases, each printing one flushed line with its wall seconds:
   knn-frame  the kernel bit for bit against the plain version on the
           recorded frame inputs (the bake's 180,224 points and the volume's
           first and last 1,048,576-point blocks included), its time on each
-          and its bound
+          and its bound, beside the plain version's and torch.cdist + topk's
+          (in chunks of 262,144 points) on the same inputs
+  cli     the user's entry points as subprocesses, in a temporary directory:
+          ``python -m relightableavatar_tpu_torch.data.make_synthetic``
+          (2 frames x 4 views at 512x512), the fixture's parameters written
+          as the checkpoint that ``make_network`` finds, then
+          ``python -m relightableavatar_tpu_torch.run -t`` dataset, network
+          (its mean render time), evaluate at the generator's exact settings
+          with mask_bkgd off (>= 50 dB against the generated images), evaluate with the
+          config's own defaults (printed, not held), visualize (one file per
+          enabled Output type per frame); then the first CLI frame rendered
+          in this process, its KNN launches counted, the kernel bit for bit
+          against the plain version on its recorded inputs
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them.  Imports nothing but the port, torch, numpy and the standard
@@ -62,22 +75,29 @@ library; reads only tracked files.
 """
 from __future__ import annotations
 
+import ast
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from relightableavatar_tpu_torch.data.datasets import load_lighting
+from relightableavatar_tpu_torch.config import setup
+from relightableavatar_tpu_torch.data.datasets import load_lighting, make_data_loader
+from relightableavatar_tpu_torch.data.image_io import read_rgb, write_png
 from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
     time_in_turns)
 from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
+from relightableavatar_tpu_torch.models.factory import make_network, make_renderer
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
@@ -109,6 +129,23 @@ ROTATIONS = 4               # rotate_ratio: 32 x 4 = 128 probes a light
 # silhouette pixel
 CARD_CPU_MIN_PSNR = 50.0
 VOLUME_P = 8192 * 128       # points of one volume ray block
+CDIST_CHUNK = 262144        # points a torch.cdist call of the yardstick (7.2 GB at N = 6890)
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the CLI phase: tubeman's config on a generated 2-frame, 4-view 512x512 tree
+CLI_CFG = "configs/synthetic/tubeman.yaml"
+CLI_FRAMES, CLI_VIEWS, CLI_VIEW = 2, 4, 3      # tubeman's test_view is [3]
+CLI_MIN_PSNR = 50.0         # same program, same inputs: 8-bit PNG rounding bounds it near 59 dB
+CLI_TIMEOUT = 300           # seconds a subprocess may take
+# every acceleration off, float32 MLPs, the exact KNN: the generator's settings;
+# mask_bkgd off, so that the GT keeps the render's silhouette pixels of acc <= 0.5
+# (the dataset zeroes them under mask_bkgd, the render does not)
+CLI_EXACT = ["tpu.bf16_mlp", "False", "tpu.knn_impl", "pallas", "mask_bkgd", "False",
+             "tpu.shadow_grid", "0",
+             "tpu.lvis_sweep", "False", "tpu.surf_miss_skip", "False",
+             "tpu.distant_envmap", "False", "tpu.lvis_downscale", "1"]
+# the Output types the sphere-traced relight renderer has maps for
+CLI_TYPES = ("surface", "residual", "depth", "alpha", "normal", "specular", "albedo",
+             "roughness", "shading", "rendering", "envmap")
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -138,6 +175,145 @@ def knn_bound_ms(P: int, N: int) -> tuple[float, str]:
     t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def yardstick_ms(p: torch.Tensor, vv: torch.Tensor) -> tuple[float, float]:
+    """ms a call of the plain version and of torch.cdist + topk (in chunks
+    of CDIST_CHUNK points) on (p, vv): medians of REPS CUDA-event runs of
+    calls back to back, fewer calls the more points."""
+    def library():
+        for s in range(0, p.shape[0], CDIST_CHUNK):
+            torch.cdist(p[s:s + CDIST_CHUNK], vv).topk(3, dim=1, largest=False)
+    calls = max(1, min(20, 20 * TIMED_P // p.shape[0]))
+    out = []
+    for fn in (lambda: knn_top3_reference(p, vv), library):
+        fn()
+        out.append(statistics.median(cuda_ms(fn, calls) for _ in range(REPS)))
+    return out[0], out[1]
+
+
+def host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_cli(task_args: list, timeout: int = CLI_TIMEOUT) -> tuple[str, float]:
+    """Run a port entry point as ``python -m ...`` from the repo's root;
+    fails on a non-zero exit.  Returns (stdout + stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *task_args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout, env={**os.environ, "RA_TPU_NO_PDB": "1"})
+    check(proc.returncode == 0, f"{' '.join(task_args[:3])} exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def frame_ms(log: str, task: str) -> dict:
+    """Mean ms of each timed part of the run's frames after the first, from
+    its progress lines ``[task] frame i/n: data X ms, render Y ms, ...``."""
+    rows = []
+    for m in re.finditer(rf"\[{task}\] frame (\d+)/\d+: (.*)", log):
+        if int(m.group(1)) > 1:
+            rows.append({k: float(v) for k, v in re.findall(r"(\w+) ([\d.]+) ms", m.group(2))})
+    check(rows, f"{task}: no progress lines after the first frame")
+    return {k: statistics.mean(r[k] for r in rows) for k in rows[0]}
+
+
+def eval_metrics(log: str) -> dict:
+    m = re.search(r"eval: (\{.*\})", log)
+    check(m is not None, "evaluate printed no metrics")
+    return ast.literal_eval(m.group(1))
+
+
+def cli_phase(smi: str, size: int = golden.FRAME_SIZE) -> tuple[int, float]:
+    """The [cli] phase (see the module docstring) on a generated tree of
+    ``size`` x ``size`` images.  Returns the first CLI frame's KNN launches
+    and the largest |d2| difference of the kernel from the plain version on
+    its inputs."""
+    t0 = time.perf_counter()
+    max_err = 0.0
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as tmp:
+        data = os.path.join(tmp, "tubeman")
+        _, gen_s = run_cli(["relightableavatar_tpu_torch.data.make_synthetic", "--root", data,
+                            "--frames", str(CLI_FRAMES), "--views", str(CLI_VIEWS),
+                            "--size", str(size)])
+        png = os.path.join(data, "images", f"{CLI_VIEW:02d}", "000000.png")
+        rgb = read_rgb(png)
+        rgba = np.concatenate([rgb, rgb[..., :1]], axis=-1)
+        decode_ms = statistics.median(host_ms(lambda: read_rgb(png)) for _ in range(REPS))
+        encode_ms = statistics.median(host_ms(lambda: write_png(os.path.join(tmp, "e.png"), rgba))
+                                      for _ in range(REPS))
+        common = ["-c", CLI_CFG, "relighting", "True", "test_dataset.data_root", data,
+                  "train_dataset.data_root", data,
+                  "trained_model_dir", os.path.join(tmp, "trained_model"),
+                  "result_dir", os.path.join(tmp, "result"), "vis_ext", ".png",
+                  "store_video_output", "False", "num_eval_frame", str(CLI_FRAMES),
+                  "test.frame_sampler_interval", "1"]
+        cfg_x, _ = setup(["-t", "evaluate", *common, *CLI_EXACT])
+        os.makedirs(cfg_x.trained_model_dir)
+        with np.load(os.path.join(golden.REPO, "fixtures", "synthetic_avatar_params.npz")) as f:
+            np.savez(os.path.join(cfg_x.trained_model_dir, "latest.npz"), epoch=np.asarray(0),
+                     **{"net:" + k: f[k] for k in f.files})
+        run = ["relightableavatar_tpu_torch.run", "-t"]
+        log_d, data_s = run_cli(run + ["dataset", *common])
+        check(len(re.findall(r"\[dataset\] frame \d+/", log_d)) == CLI_FRAMES,
+              "dataset did not give every frame")
+        log_n, net_s = run_cli(run + ["network", *common])
+        m = re.search(r"mean render time: ([\d.]+)s, fps: ([\d.]+)", log_n)
+        check(m is not None, "network printed no mean render time")
+        net_mean, net_fps = float(m.group(1)), float(m.group(2))
+        log_x, exact_s = run_cli(run + ["evaluate", *common, *CLI_EXACT])
+        metrics_x = eval_metrics(log_x)
+        check(metrics_x["psnr"] >= CLI_MIN_PSNR, f"evaluate at the generator's settings: "
+              f"{metrics_x['psnr']:.2f} dB < {CLI_MIN_PSNR} dB against the generated images")
+        log_e, eval_s = run_cli(run + ["evaluate", *common])
+        metrics_d = eval_metrics(log_e)
+        vis_dir = os.path.join(tmp, "vis")
+        vis_types = [w for t in CLI_TYPES for w in (f"vis_{t}_map", "True")]
+        log_v, vis_s = run_cli(run + ["visualize", *common, "result_dir", vis_dir, *vis_types])
+        vis_root = os.path.join(vis_dir, cfg_x.task, cfg_x.exp_name)
+        want = {os.path.join(vis_root, t, f"frame{f:04d}_view{CLI_VIEW:04d}.png")
+                for t in CLI_TYPES for f in range(CLI_FRAMES)}
+        got = {os.path.join(r, n) for r, _, ns in os.walk(vis_dir) for n in ns}
+        check(got == want, f"visualize wrote {sorted(got - want)} beyond and lacks "
+              f"{sorted(want - got)} of one file per type per frame")
+        ms_n, ms_x, ms_v = frame_ms(log_n, "network"), frame_ms(log_x, "evaluate"), \
+            frame_ms(log_v, "visualize")
+
+        # the first CLI frame in this process: its KNN launches and inputs
+        params_x, mcfg_x = make_network(cfg_x, device="cuda")
+        renderer_x = make_renderer(cfg_x, params_x, mcfg_x, device="cuda")
+        batch_x = next(iter(make_data_loader(cfg_x, is_train=False, device="cuda")))
+        cli_inputs: dict = {}
+        torch.cuda.synchronize()
+        with record_knn_inputs(cli_inputs):
+            knn_cuda.KNN_TOP3.launches = 0
+            out_x = renderer_x.render(batch_x)
+            torch.cuda.synchronize()
+            launches_cli = knn_cuda.KNN_TOP3.launches
+        check(launches_cli > 0, "the CLI frame did not launch the KNN kernel")
+        check(bool(torch.isfinite(out_x.rgb_map).all())
+              and out_x.rgb_map.shape == (int(np.asarray(batch_x.mask_at_box).sum()), 3),
+              "the CLI frame's rgb_map is not finite or not one row a ray in the box")
+        for key, (p, vv) in cli_inputs.items():
+            d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+            d2r, ir = knn_top3_reference(p, vv)
+            max_err = max(max_err, max_abs_diff(d2k, d2r))
+            check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
+                  f"CLI frame input P={frame_input_name(key, p)}: differs from the plain version")
+    fmt = lambda d: ", ".join(f"{k} {v:.6g}" for k, v in d.items())
+    phase("cli", t0, f"make_synthetic {CLI_FRAMES}x{CLI_VIEWS} at {size}x{size} {gen_s:.1f} s; "
+          f"PNG decode of a {rgb.shape[1]}x{rgb.shape[0]} RGB image {decode_ms:.1f} ms, encode "
+          f"of an RGBA one {encode_ms:.1f} ms (host); run -t dataset {data_s:.1f} s, network "
+          f"{net_s:.1f} s (mean render time {net_mean:.4f} s, fps {net_fps:.2f}; {smi}), "
+          f"evaluate exact {exact_s:.1f} s ({fmt(metrics_x)}), evaluate defaults {eval_s:.1f} s "
+          f"({fmt(metrics_d)}), visualize {vis_s:.1f} s ({len(want)} files); ms a frame after "
+          f"the first: network {fmt(ms_n)}; evaluate exact {fmt(ms_x)}; visualize {fmt(ms_v)}; "
+          f"first CLI frame: KNN kernel launches {launches_cli}, kernel equal to the plain "
+          f"version on its {len(cli_inputs)} recorded inputs ("
+          + ", ".join(frame_input_name(k, p) for k, (p, _) in cli_inputs.items()) + ")")
+    return launches_cli, max_err
 
 
 def main() -> None:
@@ -204,16 +380,18 @@ def main() -> None:
     lib_idx = library_fn().indices
     lib_agree = float((lib_idx.to(torch.int32) == ik).all(dim=1).float().mean())
     bound_ms, bound_by = knn_bound_ms(TIMED_P, N)
-    ms_by_P = {}
+    ms_by_P, plain_ms_by_P, library_ms_by_P = {}, {}, {}
     for P in FRAME_BLOCKS:
         p = synthetic_points(verts, P, rng)
         ms_by_P[str(P)] = time_in_turns({"kernel": lambda p=p: knn_cuda.knn_top3_cuda(p, verts)},
                                         REPS)["kernel"]
+        plain_ms_by_P[str(P)], library_ms_by_P[str(P)] = yardstick_ms(p, verts)
     phase("knn", t0, f"P={TIMED_P} N={N}, ms per call over runs of back-to-back "
           f"calls: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"cdist+topk {lib_ms:.4f} ms (top-3 sets equal on {lib_agree:.4%} of points), "
-          f"bound {bound_ms:.4f} ms by {bound_by}; kernel at the frame's block sizes "
-          + ", ".join(f"P={P} {ms:.4f} ms" for P, ms in ms_by_P.items()))
+          f"bound {bound_ms:.4f} ms by {bound_by}; at the frame's block sizes kernel / plain / "
+          "cdist+topk " + ", ".join(f"P={P} {ms:.4f} / {plain_ms_by_P[P]:.4f} / "
+                                   f"{library_ms_by_P[P]:.4f} ms" for P, ms in ms_by_P.items()))
 
     # ---- golden
     t0 = time.perf_counter()
@@ -512,7 +690,7 @@ def main() -> None:
     # ---- the kernel on the frame's own inputs
     t0 = time.perf_counter()
     check(set(FRAME_BLOCKS) <= set(frame_inputs), "the frame made no call at some block size")
-    frame_inputs_ms = {}
+    frame_inputs_ms, frame_inputs_plain_ms, frame_inputs_library_ms = {}, {}, {}
     for key, (p, vv) in sorted(frame_inputs.items(), key=lambda kv: str(kv[0])):
         name = frame_input_name(key, p) + (" bake" if key == bake_P else "")
         d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
@@ -522,7 +700,9 @@ def main() -> None:
               f"frame input P={name}: differs from the plain version")
         frame_inputs_ms[name] = time_in_turns(
             {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+        frame_inputs_plain_ms[name], frame_inputs_library_ms[name] = yardstick_ms(p, vv)
     volume_inputs_ms, volume_bound_ms = {}, {}
+    volume_inputs_plain_ms, volume_inputs_library_ms = {}, {}
     for key, name in ((VOLUME_P, "volume block 0"), ((VOLUME_P, "last"), "volume last block")):
         p, vv = volume_inputs.pop(key)
         d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
@@ -533,10 +713,21 @@ def main() -> None:
         volume_inputs_ms[name] = time_in_turns(
             {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
         volume_bound_ms[name] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
+        volume_inputs_plain_ms[name], volume_inputs_library_ms[name] = yardstick_ms(p, vv)
+        del p, vv
     phase("knn-frame", t0, "the frame's own KNN inputs: d2 and idx equal to the plain "
-          "version; kernel " + ", ".join(f"P={k} {ms:.4f} ms" for k, ms in frame_inputs_ms.items())
-          + "; " + ", ".join(f"{k} (P={VOLUME_P}) {ms:.4f} ms, bound {volume_bound_ms[k]:.4f} ms"
+          "version; kernel / plain / cdist+topk " + ", ".join(
+              f"P={k} {ms:.4f} / {frame_inputs_plain_ms[k]:.4f} / {frame_inputs_library_ms[k]:.4f} ms"
+              for k, ms in frame_inputs_ms.items())
+          + "; " + ", ".join(f"{k} (P={VOLUME_P}) {ms:.4f} / {volume_inputs_plain_ms[k]:.4f} / "
+                             f"{volume_inputs_library_ms[k]:.4f} ms, bound {volume_bound_ms[k]:.4f} ms"
                              for k, ms in volume_inputs_ms.items()))
+
+    # ---- the CLI: the user's entry points as subprocesses (this slice's main path)
+    del frame_inputs, volume_inputs
+    torch.cuda.empty_cache()
+    launches_cli, cli_err = cli_phase(smi)
+    max_err = max(max_err, cli_err)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -550,6 +741,7 @@ def main() -> None:
         "launches_ground": launches_ground,
         "launches_volume": launches_volume,
         "launches_volume_cull32": launches_cull,
+        "launches_cli": launches_cli,
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -557,8 +749,14 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": lib_ms,
         "ms_by_P": ms_by_P,
+        "plain_ms_by_P": plain_ms_by_P,
+        "library_ms_by_P": library_ms_by_P,
         "frame_inputs_ms": frame_inputs_ms,
+        "frame_inputs_plain_ms": frame_inputs_plain_ms,
+        "frame_inputs_library_ms": frame_inputs_library_ms,
         "volume_inputs_ms": volume_inputs_ms,
+        "volume_inputs_plain_ms": volume_inputs_plain_ms,
+        "volume_inputs_library_ms": volume_inputs_library_ms,
         "volume_inputs_bound_ms": volume_bound_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,10 @@
 An attribute-access config node (CN), recursive ``parent_cfg``/``parent_cfgs``
 inheritance (reference ``yacs.py:285-294`` ``merge_strain``), recursive
 merging of overlay sub-configs, and ``merge_from_list`` CLI ``k v`` pairs with
-type coercion (reference ``yacs.py:177``).  PyYAML is imported only by
-:func:`_read_yaml`, the one function that reads a YAML file.
+type coercion (reference ``yacs.py:177``).  YAML files are read by the
+port's own :mod:`~relightableavatar_tpu_torch.config.yaml_subset`, typed as
+PyYAML's ``safe_load`` types them, so the CPU and the card read the same
+tree without PyYAML.
 """
 from __future__ import annotations
 
@@ -14,13 +16,12 @@ import copy
 import os
 from typing import Any, List
 
+from relightableavatar_tpu_torch.config.yaml_subset import load_file
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
 
 def _read_yaml(path: str) -> dict:
-    import yaml
-    with open(path, "r") as f:
-        return yaml.safe_load(f) or {}
+    return load_file(path) or {}
 
 
 class CN(dotdict):

@@ -69,6 +69,46 @@ def make_frame_context(model: BodyModel, tverts: np.ndarray, tjoints: np.ndarray
                              R, Th, poses, A, big_A, device=device)
 
 
+def make_frame_context_mesh(prior: dict, poses: np.ndarray, Rh: np.ndarray,
+                            Th: np.ndarray, device="cuda") -> dict:
+    """Context from a ``can_mesh.npz`` geometry prior (the stage-2
+    ``use_geometry`` path, reference ``base_dataset.py:196-204,324-329``):
+    the prior's verts (bigpose canonical space), transferred skinning
+    weights, faces, tjoints and parents replace the SMPL body model, and the
+    posed verts come from LBS (:func:`lbs_bigpose_to_pose`), then the global
+    rigid."""
+    tverts = np.asarray(prior['verts'], np.float32)
+    W = np.asarray(prior['weights'], np.float32)
+    faces = np.asarray(prior['faces'], np.int64)
+    tjoints = np.asarray(prior['tjoints'], np.float32)
+    parents = np.asarray(prior['parents'], np.int64)
+
+    poses = np.asarray(poses, np.float32).reshape(-1, 3)
+    big_A, _ = bigpose_A(tjoints, parents)
+    A, _ = get_rigid_transform(poses, tjoints, parents)
+    R = batch_rodrigues(np.asarray(Rh, np.float32).reshape(1, 3))[0]
+    Th = np.asarray(Th, np.float32).reshape(1, 3)
+
+    pverts = lbs_bigpose_to_pose(tverts, W, big_A, A)
+    wverts = pverts @ R.T + Th
+    return _assemble_context(wverts, pverts, tverts, W, faces, R, Th,
+                             poses, A, big_A, device=device)
+
+
+def lbs_bigpose_to_pose(tverts: np.ndarray, W: np.ndarray, big_A: np.ndarray,
+                        A: np.ndarray) -> np.ndarray:
+    """Host-side LBS re-posing of a canonical (bigpose) vertex cloud: back to
+    the T-pose through the weight-blended inverse ``big_A``, then to the
+    pose through the blended ``A`` (reference ``blend_utils.py:234-333``)."""
+    Abw_big = np.einsum('vj,jab->vab', W, big_A)
+    txyz = np.einsum('vab,vb->va',
+                     np.linalg.inv(Abw_big[:, :3, :3]),
+                     tverts - Abw_big[:, :3, 3])
+    Abw = np.einsum('vj,jab->vab', W, A)
+    pverts = np.einsum('vab,vb->va', Abw[:, :3, :3], txyz) + Abw[:, :3, 3]
+    return pverts.astype(np.float32)
+
+
 def bigpose_vector(n_bones: int) -> np.ndarray:
     """Canonical big-pose axis-angles: 30 deg leg spread
     (reference base_dataset.py:222-228)."""

@@ -1,9 +1,15 @@
 """Parameters carried across from the JAX package's flat npz layout
 (``relightableavatar_tpu/train/checkpoints.py:23-66``): keys are pytree paths
 such as ``sdf/layers/3/v``; linear weights are stored (in, out) and
-weight-normed layers keep their ``g``/``v`` form.
+weight-normed layers keep their ``g``/``v`` form.  :func:`load_model` reads
+the checkpoints that the JAX package's ``save_model`` writes
+(``train/checkpoints.py:72-131``); the ``.pth`` importer is not ported yet.
 """
 from __future__ import annotations
+
+import json
+import os
+import re
 
 import numpy as np
 import torch
@@ -102,3 +108,39 @@ def load_params(path: str, device="cuda", mcfg: AniSDFConfig | None = None) -> d
     with np.load(path) as f:
         flat = {k: f[k] for k in f.files}
     return params_from_flat(flat, device=device, mcfg=mcfg)
+
+
+def read_checkpoint(model_dir: str, epoch: int = -1):
+    """The flat parameters, epoch and aux dict of the newest npz checkpoint
+    in ``model_dir`` (``latest.npz``, else the highest ``<epoch>.npz``, or
+    ``<epoch>.npz`` when it is there), written by the JAX package's
+    ``save_model``: parameter keys carry a ``net:`` prefix, ``epoch`` is a
+    scalar and ``aux`` a JSON string (``train/checkpoints.py:101-131``).
+    Returns (None, 0, {}) when there is none."""
+    if not os.path.isdir(model_dir):
+        return None, 0, {}
+    if epoch == -1 and os.path.exists(os.path.join(model_dir, "latest.npz")):
+        path = os.path.join(model_dir, "latest.npz")
+    else:
+        eps = sorted(int(m.group(1)) for f in os.listdir(model_dir)
+                     if (m := re.match(r"^(\d+)\.npz$", f)))
+        if not eps:
+            return None, 0, {}
+        e = epoch if epoch != -1 and epoch in eps else eps[-1]
+        path = os.path.join(model_dir, f"{e}.npz")
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    loaded_epoch = int(flat.pop("epoch", 0))
+    aux = json.loads(str(flat.pop("aux"))) if "aux" in flat else {}
+    net = {k.split(":", 1)[1]: v for k, v in flat.items() if k.startswith("net:")}
+    return net, loaded_epoch, aux
+
+
+def load_model(model_dir: str, mcfg: AniSDFConfig, device="cuda", epoch: int = -1):
+    """(params, epoch, aux) of the newest npz checkpoint in ``model_dir``
+    (:func:`read_checkpoint`, then :func:`params_from_flat`), or
+    (None, 0, {}) when there is none."""
+    flat, loaded_epoch, aux = read_checkpoint(model_dir, epoch)
+    if flat is None:
+        return None, 0, {}
+    return params_from_flat(flat, device=device, mcfg=mcfg), loaded_epoch, aux

@@ -1,14 +1,18 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
 plain version on the card, the relight render on the card, the slice sweep
 and the bfloat16 MLP route on the card against the CPU, the bench-stack
-golden, and the novel-light sweep, the ground frame and the volume frame
-on the card against the CPU.  They skip with a reason where torch finds no CUDA device; on the
+golden, the novel-light sweep, the ground frame, the volume frame and
+``run -t evaluate`` on the card against the CPU.  They skip with a reason where torch finds no CUDA device; on the
 card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
 import pytest
 import torch
 
+from relightableavatar_tpu_torch.config import setup
+from relightableavatar_tpu_torch.data import make_synthetic
 from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.eval.evaluator import Evaluator
+from relightableavatar_tpu_torch.run import run_evaluate
 from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.ops import knn_cuda
@@ -198,3 +202,58 @@ def test_volume_frame_on_the_card_equals_the_cpu(cuda, cull):
     cpu = golden.render_check_frame(golden.volume_check_cfg(cull), device="cpu")
     assert card['acc_map'].max() > 0.5
     _held(card, cpu, skip=())
+
+
+# run -t evaluate on the card against the CPU: float32, TF32 off, the same
+# tree and checkpoint; every map within 1e-5 of the CPU's, relative to the
+# map's largest magnitude (at least 1), but spec_map: it divides by
+# |ldot| + 1e-8 (ROADMAP, "spec_map parity"; 2.8e-4 apart on the card),
+# held to test_torch_frame.py's spec_map bar
+EVAL_RTOL = 1e-5
+EVAL_SPEC_MIN_PSNR = 45.0
+
+
+def test_run_evaluate_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
+    monkeypatch.chdir(golden.REPO)
+    root = str(tmp_path / "tubeman")
+    gcfg = make_synthetic.generator_cfg(52)
+    gcfg.sphere_tracing.iter = 6
+    gcfg.obj_lvis.iter = 2
+    gcfg.tpu.ray_block = 256
+    with torch.no_grad():
+        make_synthetic.make_dataset_tree(root, frames=1, views=1, size=16, device="cpu",
+                                         cfg=gcfg)
+    ckpt = tmp_path / "trained_model" / "relight" / "tubeman_relight"
+    ckpt.mkdir(parents=True)
+    with np.load(make_synthetic.FIXTURE_PARAMS) as f:
+        np.savez(ckpt / "latest.npz", **{"net:" + k: f[k] for k in f.files})
+    maps = {}
+    evaluate = Evaluator.evaluate
+
+    def recording(self, output, batch):
+        maps.setdefault(self.cfg.result_dir, []).append(
+            {k: v.cpu().numpy() for k, v in output.items() if isinstance(v, torch.Tensor)})
+        return evaluate(self, output, batch)
+    monkeypatch.setattr(Evaluator, "evaluate", recording)
+    results = {}
+    for device in ("cuda", "cpu"):
+        cfg, _ = setup(['-t', 'evaluate', '-c', 'configs/synthetic/tubeman.yaml', 'relighting',
+                        'True', 'test_dataset.data_root', root, 'train_dataset.data_root', root,
+                        'trained_model_dir', str(tmp_path / "trained_model"),
+                        'result_dir', str(tmp_path / device), 'vis_ext', '.png',
+                        'store_video_output', 'False', 'num_eval_frame', '1',
+                        'tpu.bf16_mlp', 'False', 'tpu.knn_impl', 'pallas', 'mask_bkgd', 'False',
+                        'sphere_tracing.iter', '6', 'obj_lvis.iter', '2', 'tpu.ray_block', '256'])
+        n0 = knn_cuda.KNN_TOP3.launches
+        results[device] = (run_evaluate(cfg, device=device), cfg.result_dir)
+        if device == "cuda":
+            assert knn_cuda.KNN_TOP3.launches > n0
+    (card, card_dir), (cpu, cpu_dir) = results["cuda"], results["cpu"]
+    assert len(maps[card_dir]) == len(maps[cpu_dir]) == 1
+    for (a, b) in zip(maps[card_dir], maps[cpu_dir]):
+        assert set(a) == set(b)
+        rel = {k: float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(b[k]).max()), 1.0)
+               for k in a if k != "spec_map"}
+        assert all(r <= EVAL_RTOL for r in rel.values()), rel
+        assert golden.psnr(a["spec_map"], b["spec_map"]) >= EVAL_SPEC_MIN_PSNR
+    assert abs(card["psnr"] - cpu["psnr"]) <= 0.01

@@ -109,3 +109,50 @@ def test_chip_smoke_fails_alone(tmp_path):
                           env={**os.environ, "PYTHONPATH": ""})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_host_layer_imports_without_opencv_yaml_or_tqdm():
+    """The card's machine has no OpenCV, PyYAML or tqdm: the CLI, the data
+    layer, the visualizer, the evaluator and the generator import without
+    them, and the config reads the YAML chain with the port's own reader."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'relightableavatar_tpu', 'cv2', 'yaml', 'tqdm'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('run', 'data.datasets', 'data.image_io', 'data.make_synthetic',\n"
+        "          'vis.visualizer', 'eval.evaluator', 'eval.metrics', 'models.factory',\n"
+        "          'config'):\n"
+        "    importlib.import_module('relightableavatar_tpu_torch.' + n)\n"
+        "import chip_smoke\n"
+        "from relightableavatar_tpu_torch.config import setup\n"
+        "cfg, args = setup(['-c', 'configs/synthetic/tubeman.yaml', '-t', 'evaluate',\n"
+        "                   'relighting', 'True'])\n"
+        "assert cfg.exp_name == 'tubeman_relight' and cfg.train.lr == 0.005\n"
+        "assert cfg.renderer_module == 'lib.networks.renderer.sphere_tracing_renderer'\n"
+        "assert not any(k in ('cv2', 'yaml', 'tqdm') for k, v in sys.modules.items()\n"
+        "               if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(REPO)
+    import numpy as np
+    from relightableavatar_tpu_torch.config import setup
+    from relightableavatar_tpu_torch.data.make_synthetic import (FIXTURE_PARAMS,
+                                                                  make_dataset_tree)
+    from relightableavatar_tpu_torch.models.factory import make_network
+
+    ckpt = tmp_path / "trained_model" / "relight" / "tubeman_relight"
+    os.makedirs(ckpt)
+    with np.load(FIXTURE_PARAMS) as f:
+        np.savez(ckpt / "latest.npz", **{"net:" + k: f[k] for k in f.files})
+    cfg, _ = setup(['-c', 'configs/synthetic/tubeman.yaml', '-t', 'network', 'relighting',
+                    'True', 'trained_model_dir', str(tmp_path / "trained_model")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_network(cfg)                    # device defaults to "cuda"
+    assert make_network(cfg, device="cpu")[0]["sdf"]["layers"][0]["v"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_dataset_tree(str(tmp_path / "data"), frames=1, views=1, size=8)
