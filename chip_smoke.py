@@ -68,10 +68,32 @@ Phases, each printing one flushed line with its wall seconds:
           enabled Output type per frame); then the first CLI frame rendered
           in this process, its KNN launches counted, the kernel bit for bit
           against the plain version on its recorded inputs
+  mesh    on the tree [cli] generated, the tasks as subprocesses whose working
+          directory is in the temporary directory (the mesh visualizer
+          writes data/animation/ there): ``run -t visualize vis_can_mesh
+          True mesh_simp_face 16384`` at tubeman's 5 mm voxels from the
+          fixture as the stage-1 checkpoint (faces within the target,
+          positive signed volume, Euler characteristic, chamfer and p2s
+          against the bigpose SMPL vertices); the same extraction in this
+          process with its KNN launches counted, its stage times and the
+          kernel bit for bit against the plain version on the filter's
+          second 1,048,576-point chunk, timed beside the plain version and
+          torch.cdist + topk; ``vis_posed_mesh True`` of frame 0 from the
+          relight checkpoint (HDQ, albedo and roughness); ``run -t evaluate``
+          at the exact settings with the canonical mesh as the geometry
+          prior (``use_geometry True geometry_mesh``: its PSNR against the
+          generated images, printed), the kernel timed on the prior's
+          vertices; the canonical and the posed mesh at 2.5 cm on the card
+          against the CPU (``eval/mesh_check.py``: equal faces, vertices
+          within 1e-4 m, attributes within 2e-5)
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
-failed check exits non-zero before them.  Imports nothing but the port, torch, numpy and the standard
-library; reads only tracked files.
+failed check exits non-zero before them; where the kernel and its plain
+version disagree, the message gives the differing rows beside a float64 top
+3 and how often 20 fresh launches of each side repeat their result
+(``eval/knn_stress.py`` repeats the [knn] phase many times).  Imports
+nothing but the port, torch, numpy and the standard library; reads only
+tracked files.
 """
 from __future__ import annotations
 
@@ -89,21 +111,26 @@ import numpy as np
 import torch
 
 from relightableavatar_tpu_torch.config import setup
-from relightableavatar_tpu_torch.data.datasets import load_lighting, make_data_loader
+from relightableavatar_tpu_torch.data.datasets import (load_lighting, make_data_loader,
+                                                       make_dataset)
 from relightableavatar_tpu_torch.data.image_io import read_rgb, write_png
-from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.eval import golden, mesh_check
+from relightableavatar_tpu_torch.eval.evaluator import MeshEvaluator
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
     time_in_turns)
 from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
+from relightableavatar_tpu_torch.models.context import make_frame_context_mesh
 from relightableavatar_tpu_torch.models.factory import make_network, make_renderer
+from relightableavatar_tpu_torch.ops import knn as knn_mod
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                              SphereTracingRenderer,
                                                              reshade_dense)
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
+from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside the
 # tensor cores and HBM3 bandwidth
@@ -146,6 +173,10 @@ CLI_EXACT = ["tpu.bf16_mlp", "False", "tpu.knn_impl", "pallas", "mask_bkgd", "Fa
 # the Output types the sphere-traced relight renderer has maps for
 CLI_TYPES = ("surface", "residual", "depth", "alpha", "normal", "specular", "albedo",
              "roughness", "shading", "rendering", "envmap")
+# the mesh phase: tubeman's config at its own 5 mm voxels (configs/base.yaml),
+# decimated as scripts/train_e2e.py asks for a stage-2 prior
+MESH_SIMP_FACE = 16384
+MESH_TIMEOUT = 600          # seconds a mesh task may take
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -167,6 +198,28 @@ def nvidia_smi(query: str) -> str:
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def check_knn_equal(name: str, pts: torch.Tensor, verts: torch.Tensor, d2k: torch.Tensor,
+                    ik: torch.Tensor, d2r: torch.Tensor, ir: torch.Tensor) -> None:
+    """Fails unless the kernel's (d2k, ik) equal the plain version's (d2r, ir)
+    bit for bit.  On a disagreement the message says which side is wrong:
+    the differing rows against a float64 top 3, and how many of 20 fresh
+    launches of each side reproduce its first result."""
+    if torch.equal(d2k, d2r) and torch.equal(ik, ir):
+        return
+    rows = ((ik != ir) | (d2k != d2r)).any(dim=1).nonzero().flatten()
+    show = rows[:4]
+    p = pts[show].double()
+    truth = ((p[:, None] - verts.double()[None]) ** 2).sum(-1).topk(3, largest=False).indices
+    same_k = sum(torch.equal(knn_cuda.knn_top3_cuda(pts, verts)[1], ik) for _ in range(20))
+    same_r = sum(torch.equal(knn_top3_reference(pts, verts)[1], ir) for _ in range(20))
+    check(False, f"{name}: differs from the plain version (max |d2 diff| "
+          f"{max_abs_diff(d2k, d2r):.3e}, {len(rows)} points with other results, rows "
+          f"{show.tolist()}: kernel idx {ik[show].tolist()} d2 {d2k[show].tolist()}, plain "
+          f"idx {ir[show].tolist()} d2 {d2r[show].tolist()}, float64 idx {truth.tolist()}, "
+          f"points {pts[show].tolist()}; of 20 fresh launches on the same input, the kernel "
+          f"gave its first idx {same_k} times, the plain version {same_r} times)")
 
 
 def knn_bound_ms(P: int, N: int) -> tuple[float, str]:
@@ -198,12 +251,15 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def run_cli(task_args: list, timeout: int = CLI_TIMEOUT) -> tuple[str, float]:
-    """Run a port entry point as ``python -m ...`` from the repo's root;
-    fails on a non-zero exit.  Returns (stdout + stderr, seconds)."""
+def run_cli(task_args: list, timeout: int = CLI_TIMEOUT, cwd: str = REPO) -> tuple[str, float]:
+    """Run a port entry point as ``python -m ...`` in ``cwd`` (the repo's
+    root by default; the package is found through PYTHONPATH); fails on a
+    non-zero exit.  Returns (stdout + stderr, seconds)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *task_args], cwd=REPO, capture_output=True,
-                          text=True, timeout=timeout, env={**os.environ, "RA_TPU_NO_PDB": "1"})
+    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    proc = subprocess.run([sys.executable, "-m", *task_args], cwd=cwd, capture_output=True,
+                          text=True, timeout=timeout,
+                          env={**os.environ, "RA_TPU_NO_PDB": "1", "PYTHONPATH": path})
     check(proc.returncode == 0, f"{' '.join(task_args[:3])} exited {proc.returncode}:\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     return proc.stdout + proc.stderr, time.perf_counter() - t0
@@ -226,82 +282,81 @@ def eval_metrics(log: str) -> dict:
     return ast.literal_eval(m.group(1))
 
 
-def cli_phase(smi: str, size: int = golden.FRAME_SIZE) -> tuple[int, float]:
-    """The [cli] phase (see the module docstring) on a generated tree of
-    ``size`` x ``size`` images.  Returns the first CLI frame's KNN launches
-    and the largest |d2| difference of the kernel from the plain version on
-    its inputs."""
+def cli_phase(smi: str, tmp: str, size: int = golden.FRAME_SIZE) -> tuple[int, float]:
+    """The [cli] phase (see the module docstring) on a tree of ``size`` x
+    ``size`` images that it generates in ``tmp/tubeman``, with the relight
+    checkpoint under ``tmp/trained_model``.  Returns the first CLI frame's
+    KNN launches and the largest |d2| difference of the kernel from the plain
+    version on its inputs."""
     t0 = time.perf_counter()
     max_err = 0.0
-    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as tmp:
-        data = os.path.join(tmp, "tubeman")
-        _, gen_s = run_cli(["relightableavatar_tpu_torch.data.make_synthetic", "--root", data,
-                            "--frames", str(CLI_FRAMES), "--views", str(CLI_VIEWS),
-                            "--size", str(size)])
-        png = os.path.join(data, "images", f"{CLI_VIEW:02d}", "000000.png")
-        rgb = read_rgb(png)
-        rgba = np.concatenate([rgb, rgb[..., :1]], axis=-1)
-        decode_ms = statistics.median(host_ms(lambda: read_rgb(png)) for _ in range(REPS))
-        encode_ms = statistics.median(host_ms(lambda: write_png(os.path.join(tmp, "e.png"), rgba))
-                                      for _ in range(REPS))
-        common = ["-c", CLI_CFG, "relighting", "True", "test_dataset.data_root", data,
-                  "train_dataset.data_root", data,
-                  "trained_model_dir", os.path.join(tmp, "trained_model"),
-                  "result_dir", os.path.join(tmp, "result"), "vis_ext", ".png",
-                  "store_video_output", "False", "num_eval_frame", str(CLI_FRAMES),
-                  "test.frame_sampler_interval", "1"]
-        cfg_x, _ = setup(["-t", "evaluate", *common, *CLI_EXACT])
-        os.makedirs(cfg_x.trained_model_dir)
-        with np.load(os.path.join(golden.REPO, "fixtures", "synthetic_avatar_params.npz")) as f:
-            np.savez(os.path.join(cfg_x.trained_model_dir, "latest.npz"), epoch=np.asarray(0),
-                     **{"net:" + k: f[k] for k in f.files})
-        run = ["relightableavatar_tpu_torch.run", "-t"]
-        log_d, data_s = run_cli(run + ["dataset", *common])
-        check(len(re.findall(r"\[dataset\] frame \d+/", log_d)) == CLI_FRAMES,
-              "dataset did not give every frame")
-        log_n, net_s = run_cli(run + ["network", *common])
-        m = re.search(r"mean render time: ([\d.]+)s, fps: ([\d.]+)", log_n)
-        check(m is not None, "network printed no mean render time")
-        net_mean, net_fps = float(m.group(1)), float(m.group(2))
-        log_x, exact_s = run_cli(run + ["evaluate", *common, *CLI_EXACT])
-        metrics_x = eval_metrics(log_x)
-        check(metrics_x["psnr"] >= CLI_MIN_PSNR, f"evaluate at the generator's settings: "
-              f"{metrics_x['psnr']:.2f} dB < {CLI_MIN_PSNR} dB against the generated images")
-        log_e, eval_s = run_cli(run + ["evaluate", *common])
-        metrics_d = eval_metrics(log_e)
-        vis_dir = os.path.join(tmp, "vis")
-        vis_types = [w for t in CLI_TYPES for w in (f"vis_{t}_map", "True")]
-        log_v, vis_s = run_cli(run + ["visualize", *common, "result_dir", vis_dir, *vis_types])
-        vis_root = os.path.join(vis_dir, cfg_x.task, cfg_x.exp_name)
-        want = {os.path.join(vis_root, t, f"frame{f:04d}_view{CLI_VIEW:04d}.png")
-                for t in CLI_TYPES for f in range(CLI_FRAMES)}
-        got = {os.path.join(r, n) for r, _, ns in os.walk(vis_dir) for n in ns}
-        check(got == want, f"visualize wrote {sorted(got - want)} beyond and lacks "
-              f"{sorted(want - got)} of one file per type per frame")
-        ms_n, ms_x, ms_v = frame_ms(log_n, "network"), frame_ms(log_x, "evaluate"), \
-            frame_ms(log_v, "visualize")
+    data = os.path.join(tmp, "tubeman")
+    _, gen_s = run_cli(["relightableavatar_tpu_torch.data.make_synthetic", "--root", data,
+                        "--frames", str(CLI_FRAMES), "--views", str(CLI_VIEWS),
+                        "--size", str(size)])
+    png = os.path.join(data, "images", f"{CLI_VIEW:02d}", "000000.png")
+    rgb = read_rgb(png)
+    rgba = np.concatenate([rgb, rgb[..., :1]], axis=-1)
+    decode_ms = statistics.median(host_ms(lambda: read_rgb(png)) for _ in range(REPS))
+    encode_ms = statistics.median(host_ms(lambda: write_png(os.path.join(tmp, "e.png"), rgba))
+                                  for _ in range(REPS))
+    common = ["-c", CLI_CFG, "relighting", "True", "test_dataset.data_root", data,
+              "train_dataset.data_root", data,
+              "trained_model_dir", os.path.join(tmp, "trained_model"),
+              "result_dir", os.path.join(tmp, "result"), "vis_ext", ".png",
+              "store_video_output", "False", "num_eval_frame", str(CLI_FRAMES),
+              "test.frame_sampler_interval", "1"]
+    cfg_x, _ = setup(["-t", "evaluate", *common, *CLI_EXACT])
+    os.makedirs(cfg_x.trained_model_dir)
+    with np.load(os.path.join(golden.REPO, "fixtures", "synthetic_avatar_params.npz")) as f:
+        np.savez(os.path.join(cfg_x.trained_model_dir, "latest.npz"), epoch=np.asarray(0),
+                 **{"net:" + k: f[k] for k in f.files})
+    run = ["relightableavatar_tpu_torch.run", "-t"]
+    log_d, data_s = run_cli(run + ["dataset", *common])
+    check(len(re.findall(r"\[dataset\] frame \d+/", log_d)) == CLI_FRAMES,
+          "dataset did not give every frame")
+    log_n, net_s = run_cli(run + ["network", *common])
+    m = re.search(r"mean render time: ([\d.]+)s, fps: ([\d.]+)", log_n)
+    check(m is not None, "network printed no mean render time")
+    net_mean, net_fps = float(m.group(1)), float(m.group(2))
+    log_x, exact_s = run_cli(run + ["evaluate", *common, *CLI_EXACT])
+    metrics_x = eval_metrics(log_x)
+    check(metrics_x["psnr"] >= CLI_MIN_PSNR, f"evaluate at the generator's settings: "
+          f"{metrics_x['psnr']:.2f} dB < {CLI_MIN_PSNR} dB against the generated images")
+    log_e, eval_s = run_cli(run + ["evaluate", *common])
+    metrics_d = eval_metrics(log_e)
+    vis_dir = os.path.join(tmp, "vis")
+    vis_types = [w for t in CLI_TYPES for w in (f"vis_{t}_map", "True")]
+    log_v, vis_s = run_cli(run + ["visualize", *common, "result_dir", vis_dir, *vis_types])
+    vis_root = os.path.join(vis_dir, cfg_x.task, cfg_x.exp_name)
+    want = {os.path.join(vis_root, t, f"frame{f:04d}_view{CLI_VIEW:04d}.png")
+            for t in CLI_TYPES for f in range(CLI_FRAMES)}
+    got = {os.path.join(r, n) for r, _, ns in os.walk(vis_dir) for n in ns}
+    check(got == want, f"visualize wrote {sorted(got - want)} beyond and lacks "
+          f"{sorted(want - got)} of one file per type per frame")
+    ms_n, ms_x, ms_v = frame_ms(log_n, "network"), frame_ms(log_x, "evaluate"), \
+        frame_ms(log_v, "visualize")
 
-        # the first CLI frame in this process: its KNN launches and inputs
-        params_x, mcfg_x = make_network(cfg_x, device="cuda")
-        renderer_x = make_renderer(cfg_x, params_x, mcfg_x, device="cuda")
-        batch_x = next(iter(make_data_loader(cfg_x, is_train=False, device="cuda")))
-        cli_inputs: dict = {}
+    # the first CLI frame in this process: its KNN launches and inputs
+    params_x, mcfg_x = make_network(cfg_x, device="cuda")
+    renderer_x = make_renderer(cfg_x, params_x, mcfg_x, device="cuda")
+    batch_x = next(iter(make_data_loader(cfg_x, is_train=False, device="cuda")))
+    cli_inputs: dict = {}
+    torch.cuda.synchronize()
+    with record_knn_inputs(cli_inputs):
+        knn_cuda.KNN_TOP3.launches = 0
+        out_x = renderer_x.render(batch_x)
         torch.cuda.synchronize()
-        with record_knn_inputs(cli_inputs):
-            knn_cuda.KNN_TOP3.launches = 0
-            out_x = renderer_x.render(batch_x)
-            torch.cuda.synchronize()
-            launches_cli = knn_cuda.KNN_TOP3.launches
-        check(launches_cli > 0, "the CLI frame did not launch the KNN kernel")
-        check(bool(torch.isfinite(out_x.rgb_map).all())
-              and out_x.rgb_map.shape == (int(np.asarray(batch_x.mask_at_box).sum()), 3),
-              "the CLI frame's rgb_map is not finite or not one row a ray in the box")
-        for key, (p, vv) in cli_inputs.items():
-            d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
-            d2r, ir = knn_top3_reference(p, vv)
-            max_err = max(max_err, max_abs_diff(d2k, d2r))
-            check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
-                  f"CLI frame input P={frame_input_name(key, p)}: differs from the plain version")
+        launches_cli = knn_cuda.KNN_TOP3.launches
+    check(launches_cli > 0, "the CLI frame did not launch the KNN kernel")
+    check(bool(torch.isfinite(out_x.rgb_map).all())
+          and out_x.rgb_map.shape == (int(np.asarray(batch_x.mask_at_box).sum()), 3),
+          "the CLI frame's rgb_map is not finite or not one row a ray in the box")
+    for key, (p, vv) in cli_inputs.items():
+        d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+        d2r, ir = knn_top3_reference(p, vv)
+        max_err = max(max_err, max_abs_diff(d2k, d2r))
+        check_knn_equal(f"CLI frame input P={frame_input_name(key, p)}", p, vv, d2k, ik, d2r, ir)
     fmt = lambda d: ", ".join(f"{k} {v:.6g}" for k, v in d.items())
     phase("cli", t0, f"make_synthetic {CLI_FRAMES}x{CLI_VIEWS} at {size}x{size} {gen_s:.1f} s; "
           f"PNG decode of a {rgb.shape[1]}x{rgb.shape[0]} RGB image {decode_ms:.1f} ms, encode "
@@ -314,6 +369,174 @@ def cli_phase(smi: str, size: int = golden.FRAME_SIZE) -> tuple[int, float]:
           f"version on its {len(cli_inputs)} recorded inputs ("
           + ", ".join(frame_input_name(k, p) for k, (p, _) in cli_inputs.items()) + ")")
     return launches_cli, max_err
+
+
+def signed_volume(verts: np.ndarray, faces: np.ndarray) -> float:
+    """m^3 enclosed by outward windings (negative when they face inward)."""
+    v = verts.astype(np.float64)
+    tri = (v - v.mean(0))[faces]
+    return float(np.einsum("fi,fi->f", tri[:, 0], np.cross(tri[:, 1], tri[:, 2])).sum() / 6.0)
+
+
+def euler_characteristic(verts: np.ndarray, faces: np.ndarray) -> int:
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), 1)
+    return len(verts) - len(np.unique(edges, axis=0)) + len(faces)
+
+
+def mesh_phase(smi: str, tmp: str) -> dict:
+    """The [mesh] phase (see the module docstring) on the tree and the
+    relight checkpoint that [cli] left in ``tmp``.  Returns the canonical
+    extraction's KNN launches, the kernel's times on its filter chunk and
+    the largest |d2| difference from the plain version."""
+    t0 = time.perf_counter()
+    data, models = os.path.join(tmp, "tubeman"), os.path.join(tmp, "trained_model")
+    cwd = os.path.join(tmp, "mesh")                 # the visualizer writes data/animation here
+    os.makedirs(cwd)
+    os.symlink(os.path.join(REPO, "configs"), os.path.join(cwd, "configs"))
+    deform = os.path.join(models, "deform", "tubeman")
+    os.makedirs(deform)
+    with np.load(os.path.join(golden.REPO, "fixtures", "synthetic_avatar_params.npz")) as f:
+        np.savez(os.path.join(deform, "latest.npz"), **{"net:" + k: f[k] for k in f.files})
+    common = ["-c", CLI_CFG, "test_dataset.data_root", data, "train_dataset.data_root", data,
+              "trained_model_dir", models, "num_eval_frame", "1"]
+    can_args = [*common, "vis_can_mesh", "True", "mesh_simp_face", str(MESH_SIMP_FACE)]
+    posed_args = [*common, "vis_posed_mesh", "True", "relighting", "True"]
+    run = ["relightableavatar_tpu_torch.run", "-t", "visualize"]
+    ret = dict(max_err=0.0)
+
+    # the canonical 5 mm mesh from the stage-1 checkpoint: the stage-2 prior
+    log_c, can_s = run_cli(run + can_args, MESH_TIMEOUT, cwd=cwd)
+    ms_c = frame_ms(log_c, "visualize")             # the second item, frame 0
+    cfg_c, _ = setup(["-t", "visualize", *can_args])
+    out_dir = os.path.join(cwd, "data", "animation", cfg_c.task, cfg_c.exp_name)
+    can_path = os.path.join(out_dir, "can_mesh.npz")
+    check(sorted(os.listdir(out_dir)) == ["can_mesh.npz", "can_mesh.ply", "frame0000.npz",
+                                          "frame0000.ply"], f"{out_dir}: {os.listdir(out_dir)}")
+    can = dict(np.load(can_path))
+    check(sorted(can) == ["faces", "parents", "tjoints", "verts", "weights"], f"can_mesh keys {sorted(can)}")
+    V, F = can["verts"], can["faces"]
+    check(0 < len(F) <= MESH_SIMP_FACE, f"can_mesh has {len(F)} faces, mesh_simp_face {MESH_SIMP_FACE}")
+    check(all(np.isfinite(can[k]).all() for k in ("verts", "weights")), "can_mesh not finite")
+    check(bool(np.allclose(can["weights"].sum(1), 1.0, atol=1e-4)), "skinning weights do not sum to 1")
+    ply = os.path.getsize(os.path.join(out_dir, "can_mesh.ply"))
+    check(ply > 12 * len(V) + 13 * len(F), "can_mesh.ply is shorter than its vertices and faces")
+    vol, euler = signed_volume(V, F), euler_characteristic(V, F)
+    check(vol > 0, f"can_mesh signed volume {vol:.4g} m^3: windings face inward")
+    dataset = make_dataset(cfg_c, is_train=False, device="cuda")
+    ev = MeshEvaluator(cfg_c)
+    ev.evaluate(dotdict(verts=V), dotdict(gt_verts=dataset.tverts))
+    chamfer = ev.summarize()
+
+    # the same extraction in this process: launches, stage times, the
+    # kernel's input of the filter's second chunk
+    params_c, mcfg_c = make_network(cfg_c, device="cuda")
+    renderer_c = make_renderer(cfg_c, params_c, mcfg_c, device="cuda")
+    batch_c = dataset[-1]
+    chunks = []                                     # the filter's first two full chunks
+    dispatch = knn_mod.knn_top3
+
+    def recording(pts, verts):
+        if pts.shape[0] == knn_mod.CHUNK and len(chunks) < 2:
+            chunks.append((pts.clone(), verts.clone()))
+        return dispatch(pts, verts)
+    knn_mod.knn_top3 = recording
+    try:
+        torch.cuda.synchronize()
+        knn_cuda.KNN_TOP3.launches = 0
+        t1 = time.perf_counter()
+        out_c = renderer_c.render(batch_c)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t1
+        ret["launches"] = knn_cuda.KNN_TOP3.launches
+    finally:
+        knn_mod.knn_top3 = dispatch
+    st = renderer_c.last_mesh
+    check(ret["launches"] > 0, "the mesh extraction did not launch the KNN kernel")
+    check(len(chunks) == 2, f"the mesh filter made no second call of {knn_mod.CHUNK} points")
+    same_as_cli = bool(np.array_equal(out_c.faces, F) and np.array_equal(out_c.verts, V))
+    del renderer_c, params_c, out_c
+
+    # the kernel on the filter's own chunk
+    p, vv = chunks[1]
+    d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+    d2r, ir = knn_top3_reference(p, vv)
+    ret["max_err"] = max_abs_diff(d2k, d2r)
+    check_knn_equal(f"mesh filter chunk ({p.shape[0]} points)", p, vv, d2k, ik, d2r, ir)
+    ret["ms"] = time_in_turns({"kernel": lambda: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    ret["plain_ms"], ret["library_ms"] = yardstick_ms(p, vv)
+    ret["bound_ms"] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
+    del p, vv, d2k, ik, d2r, ir, chunks
+
+    # the posed frame-0 mesh from the relight checkpoint: HDQ and materials
+    _, posed_s = run_cli(run + posed_args, MESH_TIMEOUT, cwd=cwd)
+    cfg_p, _ = setup(["-t", "visualize", *posed_args])
+    posed = dict(np.load(os.path.join(cwd, "data", "animation", cfg_p.task, cfg_p.exp_name,
+                                      "frame0000.npz")))
+    nv = len(posed["verts"])
+    check(nv > 0 and posed["albedo"].shape == (nv, 3) and posed["roughness"].shape == (nv, 1),
+          "the posed mesh has no albedo or roughness a vertex")
+    check(all(np.isfinite(posed[k]).all() for k in ("verts", "albedo", "roughness", "weights")),
+          "the posed mesh is not finite")
+    posed_vol = signed_volume(posed["verts"], posed["faces"])
+    check(posed_vol > 0, f"posed mesh signed volume {posed_vol:.4g} m^3")
+
+    # a relight frame with the extracted mesh as its geometry prior
+    prior_args = ["-c", CLI_CFG, "relighting", "True", "test_dataset.data_root", data,
+                  "train_dataset.data_root", data, "trained_model_dir", models,
+                  "result_dir", os.path.join(tmp, "result_prior"), "vis_ext", ".png",
+                  "store_video_output", "False", "num_eval_frame", str(CLI_FRAMES),
+                  "test.frame_sampler_interval", "1", *CLI_EXACT,
+                  "use_geometry", "True", "geometry_mesh", can_path]
+    log_r, prior_s = run_cli(["relightableavatar_tpu_torch.run", "-t", "evaluate", *prior_args],
+                             MESH_TIMEOUT)
+    metrics_r = eval_metrics(log_r)
+    check(all(np.isfinite(v) for v in metrics_r.values()), f"prior evaluate metrics {metrics_r}")
+    ms_r = frame_ms(log_r, "evaluate")
+    motion = np.load(os.path.join(data, "motion.npz"))
+    ctx_r = make_frame_context_mesh(can, motion["poses"][0], motion["Rh"][0], motion["Th"][0],
+                                    device="cuda")
+    pts_r = synthetic_points(ctx_r["pverts"], TIMED_P, np.random.default_rng(4))
+    prior_knn = time_in_turns({"plain": lambda: knn_top3_reference(pts_r, ctx_r["pverts"]),
+                               "kernel": lambda: knn_cuda.knn_top3_cuda(pts_r, ctx_r["pverts"])},
+                              REPS)
+
+    # the coarse mesh on the card against the CPU
+    t1 = time.perf_counter()
+    coarse = {}
+    for name, mode, item, opts in (("canonical", "vis_can_mesh", -1, ()),
+                                   ("posed", "vis_posed_mesh", 0, ("relighting", "True"))):
+        cfg_m = mesh_check.mesh_cfg(data, models, mode, opts=opts)
+        card, card_st, cloud = mesh_check.extract(cfg_m, item, "cuda")
+        cpu, _, _ = mesh_check.extract(cfg_m, item, "cpu")
+        diff = mesh_check.compare(card, cpu, cloud)
+        check(mesh_check.agrees(diff), f"{name} mesh at {mesh_check.CHECK_VOXEL} m, card vs CPU: "
+              f"{diff} (bars: equal faces, verts {mesh_check.VERT_ATOL} m, attributes "
+              f"{mesh_check.ATTR_ATOL}, top-3 sets differing {mesh_check.TIE_SHARE})")
+        coarse[name] = (card_st.grid_points, diff)
+    coarse_s = time.perf_counter() - t1
+
+    fmt = lambda d: ", ".join(f"{k} {v:.6g}" for k, v in d.items())
+    phase("mesh", t0, f"run -t visualize vis_can_mesh True mesh_simp_face {MESH_SIMP_FACE} "
+          f"{can_s:.1f} s (ms of its second item: {fmt(ms_c)}); in this process ({mesh_s:.2f} s, bf16 MLPs, {smi}): grid points "
+          f"{st.grid_points}, band points {st.band_points}, KNN kernel launches "
+          f"{ret['launches']}, filter {st.filter_s * 1e3:.1f} ms, SDF {st.sdf_s * 1e3:.1f} ms, "
+          f"cube to host {st.cube_d2h_s * 1e3:.1f} ms, marching {st.marching_s:.2f} s "
+          f"({st.marched_faces} faces), largest component {st.component_s:.2f} s, decimation "
+          f"{st.decimate_s:.2f} s, weights {st.weights_s * 1e3:.1f} ms; mesh equal to the "
+          f"CLI's {same_as_cli}; can_mesh {len(V)} verts, {len(F)} faces, signed volume "
+          f"{vol:.6g} m^3, Euler characteristic {euler}, against the bigpose SMPL vertices "
+          f"{fmt(chamfer)} m; kernel on the filter's {knn_mod.CHUNK}-point chunk equal to the "
+          f"plain version, {ret['ms']:.4f} / plain {ret['plain_ms']:.4f} / cdist+topk "
+          f"{ret['library_ms']:.4f} ms, bound {ret['bound_ms']:.4f} ms; vis_posed_mesh "
+          f"{posed_s:.1f} s: frame 0 {nv} verts, {len(posed['faces'])} faces, signed volume "
+          f"{posed_vol:.6g} m^3, albedo {posed['albedo'].min():.4f}..{posed['albedo'].max():.4f}, "
+          f"roughness {posed['roughness'].min():.4f}..{posed['roughness'].max():.4f}; evaluate "
+          f"with the prior (exact, {CLI_FRAMES} frames) {prior_s:.1f} s: {fmt(metrics_r)}; ms a "
+          f"frame after the first: {fmt(ms_r)}; the prior's {len(V)} verts as the KNN cloud: "
+          f"kernel {prior_knn['kernel']:.4f} ms / plain {prior_knn['plain']:.4f} ms at "
+          f"P={TIMED_P}; card vs CPU at {mesh_check.CHECK_VOXEL} m ({coarse_s:.1f} s): "
+          + "; ".join(f"{k} ({n} grid points) {d}" for k, (n, d) in coarse.items()))
+    return ret
 
 
 def main() -> None:
@@ -359,9 +582,7 @@ def main() -> None:
               f"{name}: kernel output type/shape")
         err = max_abs_diff(d2k, d2r)
         max_err = max(max_err, err)
-        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
-              f"{name}: differs from the plain version (max |d2 diff| {err:.3e}, "
-              f"{int((ik != ir).any(dim=1).sum())} points with other indices)")
+        check_knn_equal(name, pts, vv, d2k, ik, d2r, ir)
         if name == "duplicated":
             check(bool((ik[:, 0] < N).all()) and bool((ik[:, 1] == ik[:, 0] + N).all()),
                   "exact ties did not go to the lowest index")
@@ -696,8 +917,7 @@ def main() -> None:
         d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
         d2r, ir = knn_top3_reference(p, vv)
         max_err = max(max_err, max_abs_diff(d2k, d2r))
-        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
-              f"frame input P={name}: differs from the plain version")
+        check_knn_equal(f"frame input P={name}", p, vv, d2k, ik, d2r, ir)
         frame_inputs_ms[name] = time_in_turns(
             {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
         frame_inputs_plain_ms[name], frame_inputs_library_ms[name] = yardstick_ms(p, vv)
@@ -708,8 +928,7 @@ def main() -> None:
         d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
         d2r, ir = knn_top3_reference(p, vv)
         max_err = max(max_err, max_abs_diff(d2k, d2r))
-        check(torch.equal(d2k, d2r) and torch.equal(ik, ir),
-              f"{name} ({p.shape[0]} points): differs from the plain version")
+        check_knn_equal(f"{name} ({p.shape[0]} points)", p, vv, d2k, ik, d2r, ir)
         volume_inputs_ms[name] = time_in_turns(
             {"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
         volume_bound_ms[name] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
@@ -723,11 +942,15 @@ def main() -> None:
                              f"{volume_inputs_library_ms[k]:.4f} ms, bound {volume_bound_ms[k]:.4f} ms"
                              for k, ms in volume_inputs_ms.items()))
 
-    # ---- the CLI: the user's entry points as subprocesses (this slice's main path)
+    # ---- the CLI: the user's entry points as subprocesses; then the mesh
+    # extraction on the tree they generated (this slice's main path)
     del frame_inputs, volume_inputs
     torch.cuda.empty_cache()
-    launches_cli, cli_err = cli_phase(smi)
-    max_err = max(max_err, cli_err)
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as tmp:
+        launches_cli, cli_err = cli_phase(smi, tmp)
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(smi, tmp)
+    max_err = max(max_err, cli_err, mesh["max_err"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -742,6 +965,7 @@ def main() -> None:
         "launches_volume": launches_volume,
         "launches_volume_cull32": launches_cull,
         "launches_cli": launches_cli,
+        "launches_mesh": mesh["launches"],
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -758,6 +982,10 @@ def main() -> None:
         "volume_inputs_plain_ms": volume_inputs_plain_ms,
         "volume_inputs_library_ms": volume_inputs_library_ms,
         "volume_inputs_bound_ms": volume_bound_ms,
+        "mesh_input_ms": mesh["ms"],
+        "mesh_input_plain_ms": mesh["plain_ms"],
+        "mesh_input_library_ms": mesh["library_ms"],
+        "mesh_input_bound_ms": mesh["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -13,8 +13,7 @@ when that folder exists, else each named HDRI gets the procedural
 :func:`synth_probe`.
 
 Not ported yet: the train split's ray sampling and ``TrainSampler``
-(ROADMAP item 10), ``MeshDataset`` and ``MeshFrameSampler`` (item 11); they
-raise.
+(ROADMAP item 10); they raise.
 """
 from __future__ import annotations
 
@@ -632,9 +631,46 @@ class DemoDataset(PoseDataset):
         return len(self.render_w2c)
 
 
+# ------------------------------------------------------------------ mesh
 @register('dataset', 'lib.datasets.mesh_dataset', 'mesh_dataset')
-def _mesh_dataset(*args, **kwargs):
-    _not_ported("MeshDataset", 11)
+class MeshDataset(PoseDataset):
+    """Voxel-grid query points for marching tetrahedra (reference
+    mesh_dataset).  ``pts`` stays a numpy (X, Y, Z, 3) grid, as in the JAX
+    package; the mesh renderer moves it to its device."""
+
+    def get_indices(self, index):
+        if index < 0:  # canonical frame marker from MeshFrameSampler
+            return -1, -1, 0, 0
+        return super().get_indices(index)
+
+    def __getitem__(self, index, draw: int | None = None) -> dotdict:
+        cfg = self.cfg
+        latent_index, frame_index, view_index, _ = self.get_indices(index)
+        if frame_index < 0:  # canonical frame
+            ret = dotdict(meta=dotdict())
+            ret.tbounds = self.tbounds
+            bounds = self.tbounds
+            ret.ctx = self.frame_ctx(0)[0]
+        else:
+            ret = self.get_blend(frame_index)
+            bounds = ret.tbounds if cfg.mesh.get('type', 'tpose') == 'tpose' else ret.wbounds
+        # the geometry-prior consumer (use_geometry) needs the skeleton to
+        # re-pose the extracted mesh (reference mesh_renderer.py:143-151)
+        ret.tjoints = self.tjoints
+        ret.parents = self.parents.astype(np.int32)
+        vs = cfg.voxel_size
+        x = np.arange(bounds[0, 0], bounds[1, 0] + vs[0], vs[0], dtype=np.float32)
+        y = np.arange(bounds[0, 1], bounds[1, 1] + vs[1], vs[1], dtype=np.float32)
+        z = np.arange(bounds[0, 2], bounds[1, 2] + vs[2], vs[2], dtype=np.float32)
+        pts = np.stack(np.meshgrid(x, y, z, indexing='ij'), axis=-1)
+        ret.voxel_size = np.array(vs, np.float32)
+        ret.pts = pts
+        ret.bounds = bounds
+        meta = dict(latent_index=latent_index, frame_index=frame_index,
+                    view_index=view_index)
+        ret.update(meta)
+        ret.meta.update(meta)
+        return ret
 
 
 # ------------------------------------------------------------------ loader
@@ -658,6 +694,14 @@ class FrameSampler:
 
     def __len__(self):
         return len(self.inds)
+
+
+class MeshFrameSampler(FrameSampler):
+    """FrameSampler + a leading canonical (-1) item (samplers.py:150-159)."""
+
+    def __init__(self, dataset, frame_sampler_interval, view_sampler_interval=1):
+        super().__init__(dataset, frame_sampler_interval, view_sampler_interval)
+        self.inds = np.concatenate([[-1], self.inds])
 
 
 class DataLoader:
@@ -693,7 +737,8 @@ def make_data_loader(cfg, is_train: bool, device="cuda"):
     dataset = make_dataset(cfg, is_train, device=device)
     sampler_name = cfg.test.get('sampler', 'FrameSampler')
     if sampler_name == 'MeshFrameSampler':
-        _not_ported("MeshFrameSampler", 11)
+        sampler = MeshFrameSampler(dataset, cfg.test.frame_sampler_interval,
+                                   cfg.test.get('view_sampler_interval', 1))
     elif sampler_name == 'FrameSampler':
         sampler = FrameSampler(dataset, cfg.test.frame_sampler_interval,
                                cfg.test.get('view_sampler_interval', 1))

@@ -3,7 +3,7 @@
 ``lib/evaluators/base_evaluator.py:71-129``): whole-image or bbox-cropped
 metrics per frame, a metrics.npy dump, the mean summary.  It is a
 Visualizer (as the reference's is, ``:12``), so evaluation also writes
-images.  ``MeshEvaluator`` waits for ROADMAP item 11.
+images.  ``MeshEvaluator`` scores a mesh's vertices against ``gt_verts``.
 """
 from __future__ import annotations
 
@@ -117,5 +117,42 @@ class Evaluator(Visualizer):
 
 
 @register('evaluator', 'lib.evaluators.mesh_evaluator', 'mesh_evaluator')
-def _mesh_evaluator(*args, **kwargs):
-    raise NotImplementedError("MeshEvaluator is not ported yet (ROADMAP item 11)")
+class MeshEvaluator(Visualizer):
+    """Chamfer + point-to-surface distances between predicted and GT vertex
+    sets (reference mesh_evaluator.py:36-98, sampling-based).  A batch
+    without ``gt_verts`` (the mesh dataset's) is not scored."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.chamfer = []
+        self.p2s = []
+
+    @staticmethod
+    def _nn_dist(a: np.ndarray, b: np.ndarray, block: int = 2048) -> np.ndarray:
+        out = np.empty(len(a), np.float32)
+        for i in range(0, len(a), block):
+            d2 = ((a[i:i + block, None] - b[None]) ** 2).sum(-1)
+            out[i:i + block] = np.sqrt(d2.min(1))
+        return out
+
+    def evaluate(self, output: dotdict, batch: dotdict) -> None:
+        if 'verts' not in output or 'gt_verts' not in batch:
+            return
+        pred = as_numpy(output.verts).astype(np.float32)
+        gt = as_numpy(batch.gt_verts).astype(np.float32)
+        rng = np.random.default_rng(0)
+        pred_s = pred[rng.integers(len(pred), size=min(10000, len(pred)))]
+        gt_s = gt[rng.integers(len(gt), size=min(10000, len(gt)))]
+        d_pg = self._nn_dist(pred_s, gt_s)
+        d_gp = self._nn_dist(gt_s, pred_s)
+        self.p2s.append(float(d_pg.mean()))
+        self.chamfer.append(float((d_pg.mean() + d_gp.mean()) / 2))
+
+    def summarize(self) -> dotdict:
+        ret = dotdict()
+        if self.chamfer:
+            ret.chamfer = float(np.mean(self.chamfer))
+            ret.p2s = float(np.mean(self.p2s))
+            log(f'mesh eval: {dict(ret)}', 'green')
+        self.chamfer, self.p2s = [], []
+        return ret

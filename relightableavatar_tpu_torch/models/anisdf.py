@@ -18,6 +18,7 @@ from relightableavatar_tpu_torch.ops import lbs
 from relightableavatar_tpu_torch.ops.embedder import positional_encoding
 from relightableavatar_tpu_torch.ops.knn import knn_top3
 from relightableavatar_tpu_torch.ops.mlp import linear_apply, mlp_apply, ssdf_apply
+from relightableavatar_tpu_torch.ops.point_mesh import signed_mesh_distance
 from relightableavatar_tpu_torch.ops.sdf import sdf_to_occ
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
@@ -50,6 +51,7 @@ class AniSDFConfig(NamedTuple):
     achro_light: bool = False
     bf16: bool = False          # bfloat16 matmuls, float32 accumulation
     bf16_act: bool = False      # with bf16: bfloat16 hidden activations
+    smpl_distance: bool = False  # HDQ's band SDF from the canonical SMPL mesh
 
     @classmethod
     def from_cfg(cls, cfg) -> "AniSDFConfig":
@@ -59,8 +61,6 @@ class AniSDFConfig(NamedTuple):
                 "top-3 KNN only ('auto' or 'pallas')")
         if cfg.get('e_type', 'pe') != 'pe':
             raise NotImplementedError(f"e_type={cfg.e_type!r}: only 'pe' is ported")
-        if cfg.smpl_distance:
-            raise NotImplementedError("smpl_distance is not ported")
         if cfg.sample_vert_cnt != 3:
             raise NotImplementedError(
                 f"sample_vert_cnt={cfg.sample_vert_cnt}: the KNN is top-3 only")
@@ -90,6 +90,7 @@ class AniSDFConfig(NamedTuple):
             achro_light=cfg.achro_light,
             bf16=bool(cfg.tpu.bf16_mlp),
             bf16_act=bool(cfg.tpu.bf16_act),
+            smpl_distance=bool(cfg.smpl_distance),
         )
 
 
@@ -265,7 +266,13 @@ def hdq_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
     _, bpts, *_ = _hdq_warp_stage(mcfg, ctx, ppts[sel], d2[sel], bw_k[sel])
     cond = condition_vector(ctx)[None, :].expand(bpts.shape[0], mcfg.cond_dim)
     resd = residuals(params, mcfg, bpts, cond)
-    net_sdf, _ = sdf_feat(params, mcfg, bpts + resd)
+    if mcfg.smpl_distance:
+        # the exact canonical-SMPL mesh SDF instead of the network's
+        # (base_network.py:417-427; the BVH becomes a blocked closest-point
+        # scan, ops/point_mesh.py)
+        net_sdf = signed_mesh_distance(bpts + resd, ctx["tverts"], ctx["faces"])[:, None]
+    else:
+        net_sdf, _ = sdf_feat(params, mcfg, bpts + resd)
     smpl_in = smpl_sdf[sel]
     if smooth_transition:
         r = torch.clamp(torch.abs(net_sdf) / th, 0.0, 1.0)

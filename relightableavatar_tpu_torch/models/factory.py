@@ -16,6 +16,7 @@ from __future__ import annotations
 from os.path import exists, isdir, join
 
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.renderer.mesh import MeshRenderer
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                              SphereTracingRenderer)
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
@@ -26,17 +27,12 @@ from relightableavatar_tpu_torch.weights import param_shapes, params_from_flat, 
 GEOMETRY_KEYS = ('resd', 'sdf', 'beta', 'rgb')
 
 
-def _mesh_renderer(*args, **kwargs):
-    raise NotImplementedError(
-        "mesh_renderer is not ported yet (ROADMAP item 11: mesh extraction)")
-
-
 register('renderer', 'lib.networks.renderer.base_renderer', 'base_renderer')(VolumeRenderer)
 register('renderer', 'lib.networks.renderer.sphere_tracing_renderer',
          'sphere_tracing_renderer')(SphereTracingRenderer)
 register('renderer', 'lib.networks.renderer.novel_light_sphere_tracing',
          'novel_light_sphere_tracing')(NovelLightRenderer)
-register('renderer', 'lib.networks.renderer.mesh_renderer', 'mesh_renderer')(_mesh_renderer)
+register('renderer', 'lib.networks.renderer.mesh_renderer', 'mesh_renderer')(MeshRenderer)
 
 
 def _read_flat(model_dir: str):

@@ -10,6 +10,9 @@ Contract shared by both: squared distances by coordinate difference
 ``(px-vx)^2 + (py-vy)^2 + (pz-vz)^2`` summed left to right in float32 (not
 the ``|p|^2 - 2 p.v + |v|^2`` identity), ascending, ties to the lowest
 vertex index, indices int32.
+
+:func:`knn` is the blocked public query for K <= 3 (the mesh renderer's band
+filter and skinning-weight transfer), built on the same top 3.
 """
 from __future__ import annotations
 
@@ -56,3 +59,25 @@ def knn_top3(pts: torch.Tensor, verts: torch.Tensor):
         return knn_top3_reference(pts, verts)
     from relightableavatar_tpu_torch.ops.knn_cuda import knn_top3_cuda
     return knn_top3_cuda(pts, verts)
+
+
+CHUNK = 1 << 20     # points a kernel launch of knn() takes (a volume block's size)
+
+
+def knn(pts: torch.Tensor, verts: torch.Tensor, K: int = 3):
+    """pts (P, 3), verts (N, 3) -> d2 (P, K) f32, idx (P, K) int32, K <= 3:
+    the first K columns of :func:`knn_top3`, in chunks of ``CHUNK`` points.
+
+    The JAX package's ``ops/knn.py:knn`` picks a 2K + 2 superset on a
+    bfloat16 distance matrix and measures it exactly in float32; this is
+    exact throughout, so the two agree but on near-ties."""
+    if not 1 <= K <= 3:
+        raise ValueError(f"K={K}: the KNN is top-3 only")
+    parts = [knn_top3(pts[s:s + CHUNK].contiguous(), verts)
+             for s in range(0, pts.shape[0], CHUNK)]
+    if not parts:
+        return (pts.new_zeros((0, K)),
+                torch.zeros((0, K), dtype=torch.int32, device=pts.device))
+    d2 = torch.cat([p[0][:, :K] for p in parts])
+    idx = torch.cat([p[1][:, :K] for p in parts])
+    return d2, idx

@@ -7,8 +7,8 @@ Maps may be tensors on the device or numpy arrays.  Images go through the
 port's :mod:`~relightableavatar_tpu_torch.data.image_io`: PNG and Radiance
 HDR are written here; JPEG (``vis_ext .jpg``, the default) and the mp4
 videos (``store_video_output``) need OpenCV and raise without it, naming the
-file and the setting to change.  ``MeshVisualizer`` waits for ROADMAP item
-11.
+file and the setting to change.  ``MeshVisualizer`` writes the mesh
+renderer's output as ``.npz`` and ``.ply``.
 """
 from __future__ import annotations
 
@@ -302,5 +302,43 @@ class LightVisualizer(Visualizer):
 
 
 @register('visualizer', 'lib.visualizers.mesh_visualizer', 'mesh_visualizer')
-def _mesh_visualizer(*args, **kwargs):
-    raise NotImplementedError("MeshVisualizer is not ported yet (ROADMAP item 11)")
+class MeshVisualizer(Visualizer):
+    """Exports can_mesh.npz (the canonical item) or frameNNNN.npz, and a
+    binary .ply beside it, under ``data/animation/<task>/<exp_name>/`` of the
+    working directory (reference mesh_visualizer.py)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.result_dir = join('data/animation', cfg.task, cfg.exp_name)
+
+    def visualize(self, output: dotdict, batch: dotdict) -> None:
+        frame = int(batch.meta.get('frame_index', 0))
+        os.makedirs(self.result_dir, exist_ok=True)
+        name = 'can_mesh' if frame < 0 else f'frame{frame:04d}'
+        extras = {k: as_numpy(output[k])
+                  for k in ('weights', 'albedo', 'roughness', 'tjoints', 'parents')
+                  if output.get(k) is not None}
+        np.savez(join(self.result_dir, name + '.npz'),
+                 verts=as_numpy(output.verts), faces=as_numpy(output.faces), **extras)
+        write_ply(join(self.result_dir, name + '.ply'),
+                  as_numpy(output.verts), as_numpy(output.faces))
+        log(f'mesh: {join(self.result_dir, name)}.npz/.ply', 'green')
+
+    def summarize(self):
+        pass
+
+
+def write_ply(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
+    """Binary little-endian PLY: float32 x, y, z; uchar-counted int32 faces."""
+    with open(path, 'wb') as f:
+        header = (b'ply\nformat binary_little_endian 1.0\n'
+                  + f'element vertex {len(verts)}\n'.encode()
+                  + b'property float x\nproperty float y\nproperty float z\n'
+                  + f'element face {len(faces)}\n'.encode()
+                  + b'property list uchar int vertex_indices\nend_header\n')
+        f.write(header)
+        f.write(verts.astype('<f4').tobytes())
+        fa = np.empty((len(faces), 13), np.uint8)
+        fa[:, 0] = 3
+        fa[:, 1:] = faces.astype('<i4').view(np.uint8).reshape(len(faces), 12)
+        f.write(fa.tobytes())

@@ -1,8 +1,9 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
 plain version on the card, the relight render on the card, the slice sweep
 and the bfloat16 MLP route on the card against the CPU, the bench-stack
-golden, the novel-light sweep, the ground frame, the volume frame and
-``run -t evaluate`` on the card against the CPU.  They skip with a reason where torch finds no CUDA device; on the
+golden, the novel-light sweep, the ground frame, the volume frame,
+``run -t evaluate`` and the mesh extraction on the card against the CPU, and
+the kernel on a chunk of the 5 mm mesh grid.  They skip with a reason where torch finds no CUDA device; on the
 card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
 import pytest
@@ -15,6 +16,9 @@ from relightableavatar_tpu_torch.eval.evaluator import Evaluator
 from relightableavatar_tpu_torch.run import run_evaluate
 from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases
 from relightableavatar_tpu_torch.models import anisdf
+from relightableavatar_tpu_torch.data.datasets import make_dataset
+from relightableavatar_tpu_torch.eval import mesh_check
+from relightableavatar_tpu_torch.ops import knn as knn_mod
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.ops import mlp
 from relightableavatar_tpu_torch.ops.knn import knn_top3_reference
@@ -257,3 +261,63 @@ def test_run_evaluate_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
         assert all(r <= EVAL_RTOL for r in rel.values()), rel
         assert golden.psnr(a["spec_map"], b["spec_map"]) >= EVAL_SPEC_MIN_PSNR
     assert abs(card["psnr"] - cpu["psnr"]) <= 0.01
+
+
+@pytest.fixture(scope="module")
+def mesh_tree(cuda, tmp_path_factory):
+    """(data root, checkpoint folder): a 1-frame 8x8 generated tree (the
+    mesh dataset reads its cameras, motion and body model) and the fixture
+    as the stage-1 and the relight checkpoint."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    root = str(tmp / "tubeman")
+    gcfg = make_synthetic.generator_cfg(52)
+    gcfg.sphere_tracing.iter = 2
+    gcfg.obj_lvis.iter = 1
+    with torch.no_grad():
+        make_synthetic.make_dataset_tree(root, frames=1, views=1, size=8, device="cpu",
+                                         cfg=gcfg)
+    with np.load(make_synthetic.FIXTURE_PARAMS) as f:
+        flat = {"net:" + k: f[k] for k in f.files}
+    for sub in ("deform/tubeman", "relight/tubeman_relight"):
+        (tmp / "trained_model" / sub).mkdir(parents=True)
+        np.savez(tmp / "trained_model" / sub / "latest.npz", **flat)
+    return root, str(tmp / "trained_model")
+
+
+@pytest.mark.parametrize("mode,item,opts", [("vis_can_mesh", -1, ()),
+                                            ("vis_posed_mesh", 0, ("relighting", "True"))])
+def test_mesh_on_the_card_equals_the_cpu(mesh_tree, monkeypatch, mode, item, opts):
+    """The coarse-voxel extraction (``eval/mesh_check.py``) on the card
+    against the CPU: the canonical mesh from the stage-1 checkpoint, the
+    posed frame-0 mesh (HDQ, albedo and roughness) from the relight one."""
+    monkeypatch.chdir(golden.REPO)
+    root, model_dir = mesh_tree
+    cfg = mesh_check.mesh_cfg(root, model_dir, mode, opts=opts)
+    n0 = knn_cuda.KNN_TOP3.launches
+    card, stats, cloud = mesh_check.extract(cfg, item, "cuda")
+    assert knn_cuda.KNN_TOP3.launches > n0
+    cpu, _, _ = mesh_check.extract(cfg, item, "cpu")
+    diff = mesh_check.compare(card, cpu, cloud)
+    assert mesh_check.agrees(diff), diff
+    assert stats.faces > 1000 and ("albedo" in card) == (mode == "vis_posed_mesh")
+
+
+def test_kernel_on_a_mesh_grid_chunk(mesh_tree, monkeypatch):
+    """The mesh filter's input: 1,048,576 points of the 5 mm canonical grid
+    against the bigpose vertices, bit for bit; ``knn`` chunks it so."""
+    monkeypatch.chdir(golden.REPO)
+    root, model_dir = mesh_tree
+    cfg = mesh_check.mesh_cfg(root, model_dir, voxel=0.005)
+    batch = make_dataset(cfg, is_train=False, device="cuda")[-1]
+    pts = torch.as_tensor(batch.pts.reshape(-1, 3), device="cuda")
+    assert pts.shape[0] > 4 * knn_mod.CHUNK
+    chunk = pts[knn_mod.CHUNK:2 * knn_mod.CHUNK]
+    verts = batch.ctx["tverts"]
+    n0 = knn_cuda.KNN_TOP3.launches
+    d2, idx = knn_cuda.knn_top3_cuda(chunk, verts)
+    d2r, idxr = knn_top3_reference(chunk, verts)
+    assert torch.equal(d2, d2r) and torch.equal(idx, idxr)
+    d1, i1 = knn_mod.knn(pts[:3 * knn_mod.CHUNK + 5], verts, K=1)
+    assert knn_cuda.KNN_TOP3.launches == n0 + 1 + 4
+    assert torch.equal(d1[knn_mod.CHUNK:2 * knn_mod.CHUNK, 0], d2[:, 0])
+    assert torch.equal(i1[knn_mod.CHUNK:2 * knn_mod.CHUNK, 0], idx[:, 0])

@@ -56,6 +56,29 @@ def test_imports_with_jax_and_jax_package_blocked():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
 
 
+def test_native_mesh_library_builds_from_the_ports_sources_alone():
+    """The host C++ mesh library (marching tetrahedra, QEM decimation) loads
+    from ``relightableavatar_tpu_torch/csrc`` with the JAX package and its
+    native loader blocked, and marches and decimates a sphere."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'relightableavatar_tpu', 'relightableavatar_tpu.native'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from relightableavatar_tpu_torch.ops import marching, meshtools, native\n"
+        "x = np.linspace(-1.3, 1.3, 24, dtype=np.float32)\n"
+        "X, Y, Z = np.meshgrid(x, x, x, indexing='ij')\n"
+        "V, F = marching.marching_tets(np.sqrt(X**2 + Y**2 + Z**2) - 1, 0.0)\n"
+        "V2, F2 = meshtools.decimate(V, F, 200)\n"
+        "assert len(F) > 1000 and 0 < len(F2) <= 200\n"
+        "assert native._LIB is not None and native.BUILD_DIR.endswith('relightableavatar_tpu_torch/_build')\n"
+        "assert not any(k.startswith('relightableavatar_tpu.') for k, v in sys.modules.items()\n"
+        "               if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_yaml_is_not_imported_by_the_package():
     code = ("import sys\nsys.modules['yaml'] = None\n"
             "import relightableavatar_tpu_torch.config as c\n"
@@ -72,6 +95,7 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from relightableavatar_tpu_torch.eval.golden import fixture_cfg, load_fixture
     from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
     from relightableavatar_tpu_torch.ops.knn_cuda import knn_top3_cuda
+    from relightableavatar_tpu_torch.renderer.mesh import MeshRenderer
     from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
     from relightableavatar_tpu_torch.weights import params_from_flat
 
@@ -84,6 +108,8 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     cfg = fixture_cfg()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SphereTracingRenderer(cfg, {}, AniSDFConfig.from_cfg(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshRenderer(cfg, {}, AniSDFConfig.from_cfg(cfg))
     with pytest.raises(ValueError, match="CUDA"):
         knn_top3_cuda(torch.zeros((4, 3)), torch.zeros((4, 3)))
     assert resolve_device("cpu") == torch.device("cpu")
@@ -121,7 +147,8 @@ def test_host_layer_imports_without_opencv_yaml_or_tqdm():
         "    sys.modules[m] = None\n"
         "for n in ('run', 'data.datasets', 'data.image_io', 'data.make_synthetic',\n"
         "          'vis.visualizer', 'eval.evaluator', 'eval.metrics', 'models.factory',\n"
-        "          'config'):\n"
+        "          'config', 'renderer.mesh', 'ops.native', 'ops.marching',\n"
+        "          'ops.meshtools', 'ops.point_mesh'):\n"
         "    importlib.import_module('relightableavatar_tpu_torch.' + n)\n"
         "import chip_smoke\n"
         "from relightableavatar_tpu_torch.config import setup\n"

@@ -18,6 +18,7 @@ import torch
 
 from relightableavatar_tpu.ops.pallas_knn import knn_pallas
 from relightableavatar_tpu_torch.eval.golden import load_fixture
+from relightableavatar_tpu_torch.eval.knn_cases import knn_cases
 from relightableavatar_tpu_torch.ops.knn import knn_top3, knn_top3_reference
 from relightableavatar_tpu_torch.ops.knn_cuda import knn_top3_cuda
 
@@ -311,6 +312,22 @@ def test_schedule_model_is_exact(cloud, case, R):
     # the last bit where XLA's CPU fusion rounds otherwise
     assert np.array_equal(idx, np.asarray(pidx))
     np.testing.assert_allclose(d2, np.asarray(pd2), atol=D2_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["P=1", "P=31", "P=33", "P=63", "P=65", "P=127", "P=129"])
+def test_schedule_model_is_exact_on_the_smoke_cases(cloud, name):
+    """The smoke's [knn] inputs (fixture frame 0's cloud, numpy rng 0) at
+    the R the kernel picks on 132 SMs, for several orders in which the
+    warps take their chunks: bit for bit the plain version."""
+    _, verts = cloud
+    cases = {n: (p, v) for n, p, v in knn_cases(torch.as_tensor(verts), np.random.default_rng(0))}
+    p, v = cases[name]
+    rd2, ridx = knn_top3_reference(p, v)
+    for seed in range(4):
+        d2, idx, stats = model_knn_top3(p.numpy(), v.numpy(), points_per_lane(len(p), 132),
+                                        chunk_owner_seed=seed)
+        assert stats["filter_misses"] == 0
+        assert np.array_equal(d2, rd2.numpy()) and np.array_equal(idx, ridx.numpy())
 
 
 def test_schedule_model_votes_rarely_near_the_surface(cloud):
