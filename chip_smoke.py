@@ -86,12 +86,32 @@ Phases, each printing one flushed line with its wall seconds:
           vertices; the canonical and the posed mesh at 2.5 cm on the card
           against the CPU (``eval/mesh_check.py``: equal faces, vertices
           within 1e-4 m, attributes within 2e-5)
+  train   stage-1 training (``eval/train_check.py``): one step at bench.py's
+          reference geometry (4 frames x 1024 rays x 128 samples, the default
+          grad_sample_budget, bf16 MLPs, stratified samples) from the
+          fixture's parameters, timed as the median of 6 steps after a
+          warm-up on the host clock ending in a device sync, with its peak
+          memory, the analytic TFLOP a step, and K1's launches a step
+          (required B x NC); the kernel bit for bit against the plain version
+          on the step's own input, timed beside it and torch.cdist + topk;
+          a small step (2 x 64 rays x 16 samples) on the card against the
+          CPU: float32 (loss within 1e-5, every gradient within 1e-4 of its
+          largest entry), then bf16 with the residual MLP's zero last weight
+          re-drawn (every weight's gradient nonzero, cosine >= 0.999 to the
+          CPU's); then on [cli]'s tree ``python -m
+          relightableavatar_tpu_torch.train`` (exp_name tubeman_verify, a
+          temporary trained_model_dir, 2 epochs of 3 iterations: finite
+          losses, the epoch files), ``resume True`` for a third epoch, and
+          ``run -t network`` from the trained checkpoint
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them; where the kernel and its plain
 version disagree, the message gives the differing rows beside a float64 top
-3 and how often 20 fresh launches of each side repeat their result
-(``eval/knn_stress.py`` repeats the [knn] phase many times).  Imports
+3 and how often 20 fresh launches of each side repeat their result, after
+saving the case to ``relightableavatar_tpu_torch/_build/knn_fail_<case>.npz``
+(a ``[knn-fail]`` line gives its path, the cloud's sha256 and, up to 64,
+the points; ``tests/test_torch_knn_replay.py`` replays such a file on the
+CPU; ``eval/knn_stress.py`` repeats the [knn] phase many times).  Imports
 nothing but the port, torch, numpy and the standard library; reads only
 tracked files.
 """
@@ -99,6 +119,7 @@ from __future__ import annotations
 
 import ast
 import json
+import math
 import os
 import re
 import statistics
@@ -114,11 +135,11 @@ from relightableavatar_tpu_torch.config import setup
 from relightableavatar_tpu_torch.data.datasets import (load_lighting, make_data_loader,
                                                        make_dataset)
 from relightableavatar_tpu_torch.data.image_io import read_rgb, write_png
-from relightableavatar_tpu_torch.eval import golden, mesh_check
+from relightableavatar_tpu_torch.eval import golden, mesh_check, train_check
 from relightableavatar_tpu_torch.eval.evaluator import MeshEvaluator
 from relightableavatar_tpu_torch.eval.knn_cases import (
-    FRAME_BLOCKS, cuda_ms, frame_input_name, knn_cases, record_knn_inputs, synthetic_points,
-    time_in_turns)
+    FRAME_BLOCKS, cloud_sha256, cuda_ms, frame_input_name, knn_cases, record_knn_inputs,
+    save_knn_failure, synthetic_points, time_in_turns)
 from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.context import make_frame_context_mesh
@@ -130,7 +151,9 @@ from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer
                                                              SphereTracingRenderer,
                                                              reshade_dense)
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
+from relightableavatar_tpu_torch.train.trainer import ray_chunks
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.utils.flops import train_step_flops
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside the
 # tensor cores and HBM3 bandwidth
@@ -177,6 +200,12 @@ CLI_TYPES = ("surface", "residual", "depth", "alpha", "normal", "specular", "alb
 # decimated as scripts/train_e2e.py asks for a stage-2 prior
 MESH_SIMP_FACE = 16384
 MESH_TIMEOUT = 600          # seconds a mesh task may take
+# the train phase: bench.py's reference step timed, a small step held card vs CPU
+TRAIN_STEPS = 6             # timed steps after one warm-up
+TRAIN_LOSS_REL = 1e-5       # f32 step, card vs CPU
+TRAIN_GRAD_REL = 1e-4       # f32: max |card - cpu| / max |cpu| of each parameter's gradient
+TRAIN_BF16_COS = 0.999      # bf16: each weight gradient's cosine to the CPU path's
+TRAIN_CLI_ITERS = 3         # iterations an epoch of the CLI's training
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -203,11 +232,17 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 def check_knn_equal(name: str, pts: torch.Tensor, verts: torch.Tensor, d2k: torch.Tensor,
                     ik: torch.Tensor, d2r: torch.Tensor, ir: torch.Tensor) -> None:
     """Fails unless the kernel's (d2k, ik) equal the plain version's (d2r, ir)
-    bit for bit.  On a disagreement the message says which side is wrong:
-    the differing rows against a float64 top 3, and how many of 20 fresh
+    bit for bit.  On a disagreement it first saves the case
+    (``knn_cases.save_knn_failure``: points, cloud and both outputs, for a
+    replay on the CPU) and prints its path, the cloud's sha256 and, for
+    P <= 64, the points; the message says which side is wrong: the
+    differing rows against a float64 top 3, and how many of 20 fresh
     launches of each side reproduce its first result."""
     if torch.equal(d2k, d2r) and torch.equal(ik, ir):
         return
+    path = save_knn_failure(name, pts, verts, d2k, ik, d2r, ir)
+    print(f"[knn-fail] {name}: saved to {path}; cloud sha256 {cloud_sha256(verts.cpu().numpy())}"
+          + (f"; points {pts.cpu().tolist()}" if pts.shape[0] <= 64 else ""), flush=True)
     rows = ((ik != ir) | (d2k != d2r)).any(dim=1).nonzero().flatten()
     show = rows[:4]
     p = pts[show].double()
@@ -536,6 +571,127 @@ def mesh_phase(smi: str, tmp: str) -> dict:
           f"kernel {prior_knn['kernel']:.4f} ms / plain {prior_knn['plain']:.4f} ms at "
           f"P={TIMED_P}; card vs CPU at {mesh_check.CHECK_VOXEL} m ({coarse_s:.1f} s): "
           + "; ".join(f"{k} ({n} grid points) {d}" for k, (n, d) in coarse.items()))
+    return ret
+
+
+def train_phase(smi: str, tmp: str) -> dict:
+    """The [train] phase (see the module docstring) on the tree [cli] left
+    in ``tmp``.  Returns the timed steps' KNN launches and the kernel's
+    times on a step's own input, with its bound and largest |d2|
+    difference from the plain version."""
+    t0 = time.perf_counter()
+    ret = {}
+    # (a) one step at bench.py's reference geometry, bf16 MLPs, stratified
+    cfg = train_check.step_cfg(train_check.BENCH_B, train_check.BENCH_S, bf16=True,
+                               perturb=True, record_dir=os.path.join(tmp, "train_record"))
+    trainer, batch = train_check.make_step(cfg, "cuda", train_check.BENCH_R)
+    B, R, S = train_check.BENCH_B, train_check.BENCH_R, train_check.BENCH_S
+    RC, NC = ray_chunks(B, R, S, int(cfg.tpu.grad_sample_budget))
+    inputs: dict = {}
+    with record_knn_inputs(inputs, sizes=(RC * S,), tail=True):
+        trainer.step(batch, 0)                                  # warm-up
+    torch.cuda.synchronize()
+    check(set(inputs) == {RC * S}, f"the step's KNN calls were not all of {RC * S} points: "
+          f"{sorted(map(str, inputs))}")
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    knn_cuda.KNN_TOP3.launches = 0
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        stats = trainer.step(batch, 0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    ret["launches"] = knn_cuda.KNN_TOP3.launches
+    per_step = ret["launches"] / TRAIN_STEPS
+    check(per_step == B * NC, f"K1 launches a step {per_step}, expected B x NC = {B * NC}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(stats.loss)
+    check(math.isfinite(loss), f"the timed step's loss is {loss}")
+    step_s = statistics.median(secs)
+    tflop = train_step_flops(trainer.mcfg, B * R * S, int(batch.ctx[0]["pverts"].shape[0])) / 1e12
+    p, vv = inputs[RC * S]
+    d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+    d2r, ir = knn_top3_reference(p, vv)
+    ret["max_err"] = max_abs_diff(d2k, d2r)
+    check_knn_equal(f"train step input P={p.shape[0]}", p, vv, d2k, ik, d2r, ir)
+    ret["ms"] = time_in_turns({"kernel": lambda: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    ret["plain_ms"], ret["library_ms"] = yardstick_ms(p, vv)
+    ret["bound_ms"] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
+    del trainer, batch, inputs, p, vv
+    torch.cuda.empty_cache()
+
+    # (b) a small step on the card against the CPU: float32, then bf16 with
+    # the residual MLP's last layer re-drawn so every layer has a gradient
+    held = {}
+    for bf16 in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            cfg_c = train_check.step_cfg(train_check.CHECK_B, train_check.CHECK_S, bf16=bf16,
+                                         perturb=False, record_dir=os.path.join(tmp, "check"))
+            tr, bt = train_check.make_step(cfg_c, dev, train_check.CHECK_R)
+            if bf16:
+                train_check.live_residual(tr)
+            res[dev] = train_check.step_result(tr, bt)
+        cmp = train_check.compare_grads(res["cuda"], res["cpu"])
+        loss_rel = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(res["cpu"]["loss"])
+        worst_rel = max(v[0] for v in cmp.values())
+        # weights with a gradient (the fixture's zero residual weight leaves
+        # the residual MLP's others without one in the float32 step)
+        worst_cos = min(v[1] for k, v in cmp.items()
+                        if not k.endswith(("/b", "beta")) and (bf16 or v[2] > 0))
+        if bf16:
+            dead = [k for k, v in cmp.items() if v[2] == 0 and not k.endswith(("/b", "beta"))]
+            check(not dead, f"bf16 step on the card: weights without a gradient: {dead}")
+            check(worst_cos >= TRAIN_BF16_COS, f"bf16 step on the card: a weight's gradient has "
+                  f"cosine {worst_cos:.6f} < {TRAIN_BF16_COS} to the CPU's")
+        else:
+            check(loss_rel <= TRAIN_LOSS_REL, f"f32 step card vs CPU loss: {loss_rel:.3e}")
+            bad = {k: v[0] for k, v in cmp.items() if v[0] > TRAIN_GRAD_REL}
+            check(not bad, f"f32 step card vs CPU gradients beyond {TRAIN_GRAD_REL}: {bad}")
+        held["bf16" if bf16 else "f32"] = (loss_rel, worst_rel, worst_cos)
+    t_check = time.perf_counter()
+
+    # (c) the CLI: train, resume, then render from the trained checkpoint
+    data = os.path.join(tmp, "tubeman")
+    model_root = os.path.join(tmp, "trained_train")
+    common = ["-c", CLI_CFG, "exp_name", "tubeman_verify", "trained_model_dir", model_root,
+              "record_dir", os.path.join(tmp, "record"), "result_dir", os.path.join(tmp, "res"),
+              "train_dataset.data_root", data, "test_dataset.data_root", data,
+              "ep_iter", str(TRAIN_CLI_ITERS), "train.num_workers", "2", "eval_ep", "100",
+              "save_ep", "100"]
+    log_t, train_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "False",
+                              "train.epoch", "2"], timeout=CLI_TIMEOUT)
+    cfg_t, _ = setup(common)
+    mdir = cfg_t.trained_model_dir
+    check(sorted(os.listdir(mdir)) == ["1.npz", "2.npz", "latest.npz"],
+          f"train wrote {sorted(os.listdir(mdir))}")
+    rows = [json.loads(line) for line in open(os.path.join(cfg_t.record_dir, "scalars.jsonl"))]
+    check(len(rows) == 2 * TRAIN_CLI_ITERS and all(math.isfinite(r["loss"]) for r in rows),
+          f"train's recorded losses: {[r.get('loss') for r in rows]}")
+    it_s = [float(m) for m in re.findall(r"([\d.]+)s/it", log_t)]
+    log_r, resume_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "True",
+                               "train.epoch", "3"], timeout=CLI_TIMEOUT)
+    with np.load(os.path.join(mdir, "latest.npz")) as f:
+        check(int(f["epoch"]) == 3, f"resume saved epoch {int(f['epoch'])}, not 3")
+    log_n, net_s = run_cli(["relightableavatar_tpu_torch.run", "-t", "network", *common,
+                            "num_eval_frame", str(CLI_FRAMES), "test.frame_sampler_interval", "1"])
+    m = re.search(r"mean render time: ([\d.]+)s", log_n)
+    check(m is not None, "run -t network from the trained checkpoint printed no render time")
+    fmt = lambda t: ", ".join(f"{x:.3e}" for x in t)
+    phase("train", t0, f"step at B={B} R={R} S={S} (budget {int(cfg.tpu.grad_sample_budget)}: "
+          f"{NC} chunks of {RC} rays), bf16, fixture parameters ({smi}): median "
+          f"{step_s * 1e3:.1f} ms of {TRAIN_STEPS} steps after one warm-up ("
+          + ", ".join(f"{x * 1e3:.1f}" for x in secs) + f" ms), {tflop:.3f} TFLOP a step "
+          f"(analytic) = {tflop / step_s:.2f} TFLOP/s, peak memory {peak:.2f} GiB, loss "
+          f"{loss:.5f}; K1 launches a step {per_step:.0f} of P={RC * S}, on the step's input "
+          f"kernel {ret['ms']:.4f} / plain {ret['plain_ms']:.4f} / cdist+topk "
+          f"{ret['library_ms']:.4f} ms, bound {ret['bound_ms']:.4f} ms, equal to the plain "
+          f"version; card vs CPU at B={train_check.CHECK_B} R={train_check.CHECK_R} "
+          f"S={train_check.CHECK_S} ({t_check - t0:.1f} s in all): f32 loss rel, worst grad "
+          f"rel, worst weight cosine {fmt(held['f32'])}; bf16 {fmt(held['bf16'])}; CLI train "
+          f"2 epochs x {TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(
+              f"{x:.3f}" for x in it_s) + f"), resume 1 epoch {resume_s:.1f} s, run -t network "
+          f"from the trained checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
     return ret
 
 
@@ -950,7 +1106,9 @@ def main() -> None:
         launches_cli, cli_err = cli_phase(smi, tmp)
         torch.cuda.empty_cache()
         mesh = mesh_phase(smi, tmp)
-    max_err = max(max_err, cli_err, mesh["max_err"])
+        torch.cuda.empty_cache()
+        train = train_phase(smi, tmp)
+    max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -966,6 +1124,7 @@ def main() -> None:
         "launches_volume_cull32": launches_cull,
         "launches_cli": launches_cli,
         "launches_mesh": mesh["launches"],
+        "launches_train": train["launches"],
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -986,6 +1145,10 @@ def main() -> None:
         "mesh_input_plain_ms": mesh["plain_ms"],
         "mesh_input_library_ms": mesh["library_ms"],
         "mesh_input_bound_ms": mesh["bound_ms"],
+        "train_input_ms": train["ms"],
+        "train_input_plain_ms": train["plain_ms"],
+        "train_input_library_ms": train["library_ms"],
+        "train_input_bound_ms": train["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -12,13 +12,17 @@ Light probes: OLATs, real HDRIs read from ``cfg.lighting_dir/16x32/*.hdr``
 when that folder exists, else each named HDRI gets the procedural
 :func:`synth_probe`.
 
-Not ported yet: the train split's ray sampling and ``TrainSampler``
-(ROADMAP item 10); they raise.
+The train split samples its rays over cached per-(index, H, W) pools with
+a numpy stream keyed by (seed, index, draw), as the JAX package does, so an
+item equals the JAX item bit for bit; the training loader cycles a
+``TrainSampler`` with a threaded prefetch.  Multi-process sharding of the
+sampler is ROADMAP item 13 (rank 0 of world 1 here).
 """
 from __future__ import annotations
 
 import itertools
 import os
+import threading
 from os.path import basename, exists, join, splitext
 import warnings
 
@@ -170,15 +174,14 @@ def gen_path(RT, center=(), z_off=-1, num_render_view=300,
     return np.array(render_w2c).astype(np.float32)
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 # ------------------------------------------------------------------ base
 @register('dataset', 'lib.datasets.base_dataset', 'base_dataset')
 class BaseDataset:
-    """Eval dataset with GT images (reference base_dataset.Dataset).  Frame
-    contexts are built on ``device``."""
+    """Training and eval dataset with GT images (reference
+    base_dataset.Dataset).  Frame contexts are built on ``device``.  Images
+    and the train split's ray pools are cached on the host up to
+    ``tpu.host_cache_gb``; the caches and the contexts are safe under the
+    loader's prefetch threads."""
 
     def __init__(self, cfg, data_root, human, ann_file, split, device="cuda"):
         self.cfg = cfg
@@ -187,6 +190,7 @@ class BaseDataset:
         self.split = split
         self.device = device
         self.nrays = cfg.n_rays
+        self.forced_hw = None        # per-batch (H, W) of image-size batching
 
         self.annots = np.load(join(data_root, ann_file), allow_pickle=True).item()
         self.cams = self.annots['cams']
@@ -199,7 +203,21 @@ class BaseDataset:
         self.novel_lights = load_lighting(cfg)
         self.load_image_size()
         self._ctx_cache = {}
+        self._ctx_lock = threading.Lock()
         self._draw_counter = itertools.count()
+        self._img_cache = {}
+        self._ray_cache = {}
+        self._cache_lock = threading.Lock()
+        self._cache_bytes = 0
+        self._cache_budget = int(float(cfg.tpu.get('host_cache_gb', 8.0)) * 2**30)
+
+    def _cache_admit(self, nbytes: int) -> bool:
+        """Reserve nbytes of the host-cache budget (the caller holds
+        ``_cache_lock``)."""
+        if self._cache_bytes + nbytes > self._cache_budget:
+            return False
+        self._cache_bytes += nbytes
+        return True
 
     # ---------------------------------------------------------- selection
     def load_view(self):
@@ -303,6 +321,10 @@ class BaseDataset:
     def frame_ctx(self, frame_index: int):
         """(context on the device, world bounds in numpy) of one motion
         frame, cached for the frame's other views (64 frames at most)."""
+        with self._ctx_lock:
+            return self._frame_ctx_locked(frame_index)
+
+    def _frame_ctx_locked(self, frame_index: int):
         if frame_index not in self._ctx_cache:
             m = self.motion
             fi = min(frame_index, len(m.poses) - 1)
@@ -346,8 +368,21 @@ class BaseDataset:
         return img, msk
 
     def _get_image_mask_scale(self, index):
-        """(img, msk, K_scale) at ``cfg.ratio``, the background zeroed under
-        ``mask_bkgd``."""
+        """(img, msk, K_scale) at the batch's forced size or ``cfg.ratio``,
+        the background zeroed under ``mask_bkgd``; cached by (index, forced
+        size, ratio, mask_bkgd)."""
+        cfg = self.cfg
+        ckey = (index, self.forced_hw, float(cfg.ratio), bool(cfg.mask_bkgd))
+        hit = self._img_cache.get(ckey)
+        if hit is not None:
+            return hit
+        img, msk, k_scale = self._get_image_and_mask_uncached(index)
+        with self._cache_lock:
+            if ckey not in self._img_cache and self._cache_admit(img.nbytes + msk.nbytes):
+                self._img_cache[ckey] = (img, msk, k_scale)
+        return img, msk, k_scale
+
+    def _get_image_and_mask_uncached(self, index):
         cfg = self.cfg
         img = self._read_image_raw(index)
         msk = None
@@ -366,7 +401,15 @@ class BaseDataset:
             msk = np.ones((self.H, self.W), np.uint8)
         if msk is None:
             msk = (img.sum(-1) > 0.02).astype(np.uint8)
-        if cfg.ratio != 1.0:
+        if self.forced_hw is not None:
+            # image-size batching: the batch's size; the rays a step samples
+            # are n_rays all the same (samplers.py:11-46)
+            H0, W0 = img.shape[:2]
+            H, W = self.forced_hw
+            img = image_io.resize(img, (W, H), image_io.INTER_AREA)
+            msk = image_io.resize(msk, (W, H), image_io.INTER_NEAREST)
+            k_scale = (W / W0, H / H0)
+        elif cfg.ratio != 1.0:
             H, W = int(img.shape[0] * cfg.ratio), int(img.shape[1] * cfg.ratio)
             img = image_io.resize(img, (W, H), image_io.INTER_AREA)
             msk = image_io.resize(msk, (W, H), image_io.INTER_NEAREST)
@@ -407,7 +450,10 @@ class BaseDataset:
             if exists(path):
                 img = self._maybe_undistort(image_io.read_rgb(path), index)
                 img = img.astype(np.float32) / 255.0
-                if self.cfg.ratio != 1.0:
+                if self.forced_hw is not None:
+                    H, W = self.forced_hw
+                    img = image_io.resize(img, (W, H), image_io.INTER_LINEAR)
+                elif self.cfg.ratio != 1.0:
                     H = int(img.shape[0] * self.cfg.ratio)
                     W = int(img.shape[1] * self.cfg.ratio)
                     img = image_io.resize(img, (W, H), image_io.INTER_LINEAR)
@@ -433,7 +479,10 @@ class BaseDataset:
                     m1, m2 = cv2.initUndistortRectifyMap(kd[0], kd[1], None, kd[0], (W0, H0),
                                                          cv2.CV_32FC1)
                     img = cv2.remap(img, m1, m2, cv2.INTER_NEAREST)
-                if self.cfg.ratio != 1.0:
+                if self.forced_hw is not None:
+                    H, W = self.forced_hw
+                    img = image_io.resize(img, (W, H), image_io.INTER_NEAREST)
+                elif self.cfg.ratio != 1.0:
                     H = int(img.shape[0] * self.cfg.ratio)
                     W = int(img.shape[1] * self.cfg.ratio)
                     img = image_io.resize(img, (W, H), image_io.INTER_NEAREST)
@@ -470,22 +519,94 @@ class BaseDataset:
         ret.meta.update(meta)
         return ret
 
+    def _train_ray_geometry(self, index, ret):
+        """The train sampler's draw-invariant ray geometry of an item: the
+        full image's ray directions, box near/far and the body, face, edge
+        and box coordinate pools (what ``rays.sample_ray`` derives over all
+        H x W pixels in every draw), cached by (index, H, W) within the host
+        budget (an entry past it is used once).  Valid without
+        ``subpixel_sample`` (fixed pixel centres)."""
+        H, W = ret.img.shape[:2]
+        key = (index, H, W)
+        ent = self._ray_cache.get(key)
+        if ent is not None:
+            return ent
+        # computed outside the lock: other prefetch threads keep going
+        ray_o, ray_d = ray_utils.get_rays(H, W, ret.cam_K, ret.cam_R, ret.cam_T)
+        near, far, mab = ray_utils.get_full_near_far(ret.wbounds, ray_o, ray_d)
+        near = near.astype(np.float32)
+        far = far.astype(np.float32)
+        ray_d = np.ascontiguousarray(ray_d, np.float32)
+        msk = ret.msk * mab
+        coord_body = np.argwhere(msk == 1)
+        coord_face = np.argwhere(msk == 13)
+        coord_rand = np.argwhere(mab == 1)
+        if len(coord_body) == 0:
+            coord_body = coord_rand
+        if len(coord_face) == 0:
+            coord_face = coord_body
+        coord_edge = np.zeros((0, 2), np.int64)
+        if float(self.cfg.get('edge_sample_ratio', 0.0)) > 0:
+            coord_edge = ray_utils.edge_band_coords(msk, mab, int(self.cfg.get('edge_band_px', 5)))
+            if len(coord_edge) == 0:
+                coord_edge = coord_rand
+        nbytes = (ray_d.nbytes + near.nbytes + far.nbytes + mab.nbytes + coord_body.nbytes
+                  + coord_face.nbytes + coord_edge.nbytes + coord_rand.nbytes)
+        ent = dotdict(ray_o0=np.ascontiguousarray(ray_o[0, 0], np.float32), ray_d=ray_d,
+                      near=near, far=far, mask_at_box=mab, coord_body=coord_body,
+                      coord_face=coord_face, coord_edge=coord_edge, coord_rand=coord_rand)
+        with self._cache_lock:
+            prior = self._ray_cache.get(key)
+            if prior is not None:
+                return prior
+            if self._cache_admit(nbytes):
+                self._ray_cache[key] = ent
+        return ent
+
+    @staticmethod
+    def _sample_ray_cached(g, img, nrays, body_ratio, face_ratio, rng, edge_ratio=0.0):
+        """The train split's body / face / edge / random ray draw over the
+        cached pools: the generator calls of ``rays.sample_ray``
+        (data_utils.py:892-922) in its order, in O(n_rays)."""
+        n_body = int(nrays * body_ratio)
+        n_face = int(nrays * face_ratio)
+        n_edge = int(nrays * edge_ratio)
+        n_rand = nrays - n_body - n_face - n_edge
+        cb = g.coord_body[rng.integers(len(g.coord_body), size=n_body)]
+        cf = g.coord_face[rng.integers(len(g.coord_face), size=n_face)]
+        if n_edge > 0:
+            ce = g.coord_edge[rng.integers(len(g.coord_edge), size=n_edge)]
+        else:
+            ce = np.zeros((0, 2), np.int64)
+        cr = g.coord_rand[rng.integers(len(g.coord_rand), size=n_rand)]
+        coord = np.concatenate([cb, cf, ce, cr], axis=0)
+        yy, xx = coord[:, 0], coord[:, 1]
+        ray_d = g.ray_d[yy, xx]
+        ray_o = np.broadcast_to(g.ray_o0, ray_d.shape).astype(np.float32)
+        return (img[yy, xx].astype(np.float32), ray_o, ray_d, g.near[yy, xx], g.far[yy, xx],
+                coord, g.mask_at_box[yy, xx])
+
     def __getitem__(self, index, draw: int | None = None) -> dotdict:
         cfg = self.cfg
-        if 'train' in self.split:
-            _not_ported("the train split's ray sampling", 10)
         ret = self.get_gt(index)
         # per-call generator stream (seed, index, draw#), as the JAX
-        # package's; the test split draws nothing from it
+        # package's: the loader passes its sequence number as ``draw``, so
+        # the stream does not depend on which prefetch thread ran first
         if draw is None:
             draw = next(self._draw_counter)
         rng = np.random.default_rng((int(cfg.get('seed', 0)), index, draw))
-        rgb, ray_o, ray_d, near, far, coord, mask_at_box = ray_utils.sample_ray(
-            ret.img, ret.msk, ret.cam_K, ret.cam_R, ret.cam_T, ret.wbounds,
-            cfg.n_rays, self.split, cfg.subpixel_sample,
-            cfg.body_sample_ratio, cfg.face_sample_ratio, rng=rng,
-            edge_ratio=float(cfg.get('edge_sample_ratio', 0.0)),
-            edge_band_px=int(cfg.get('edge_band_px', 5)))
+        if 'train' in self.split and not cfg.subpixel_sample:
+            geom = self._train_ray_geometry(index, ret)
+            rgb, ray_o, ray_d, near, far, coord, mask_at_box = self._sample_ray_cached(
+                geom, ret.img, cfg.n_rays, cfg.body_sample_ratio, cfg.face_sample_ratio, rng,
+                float(cfg.get('edge_sample_ratio', 0.0)))
+        else:
+            rgb, ray_o, ray_d, near, far, coord, mask_at_box = ray_utils.sample_ray(
+                ret.img, ret.msk, ret.cam_K, ret.cam_R, ret.cam_T, ret.wbounds,
+                cfg.n_rays, self.split, cfg.subpixel_sample,
+                cfg.body_sample_ratio, cfg.face_sample_ratio, rng=rng,
+                edge_ratio=float(cfg.get('edge_sample_ratio', 0.0)),
+                edge_band_px=int(cfg.get('edge_band_px', 5)))
         msk = ret.msk[coord[:, 0], coord[:, 1]].astype(np.float32)
         ret.update(dict(rgb=rgb, ray_o=ray_o, ray_d=ray_d, near=near, far=far,
                         coord=coord, msk=msk, mask_at_box=mask_at_box))
@@ -704,17 +825,122 @@ class MeshFrameSampler(FrameSampler):
         self.inds = np.concatenate([[-1], self.inds])
 
 
-class DataLoader:
-    """The test loader: the dataset's items in the sampler's order, or in
-    its own.  The JAX package's training mode (``TrainSampler``, shuffling,
-    threaded prefetch, image-size batching) waits for ROADMAP item 10."""
+class TrainSampler:
+    """Epoch-seeded shuffling sampler, rank-strided, cycling the dataset
+    without end within an epoch (reference ``samplers.py``: DistributedSampler
+    :74-130, IterationBasedBatchSampler :49-71, RandomSampler).  Each pass
+    reshuffles with its own (seed, epoch, pass) stream.  Rank 0 of world 1:
+    multi-process training is ROADMAP item 13."""
 
-    def __init__(self, dataset, sampler=None):
-        self.dataset = dataset
-        self.sampler = sampler
+    def __init__(self, n: int, shuffle: bool = True, seed: int = 0, rank: int = 0,
+                 world: int = 1):
+        if world != 1 or rank != 0:
+            raise NotImplementedError(
+                f"TrainSampler rank {rank} of world {world}: multi-process training is "
+                "not ported yet (ROADMAP item 13)")
+        self.n = n
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rank = rank
+        self.world = world
+        self.epoch = 0
+
+    def __len__(self):  # items a rank takes in a pass
+        return (self.n + self.world - 1) // self.world
 
     def __iter__(self):
-        inds = self.sampler if self.sampler is not None else range(len(self.dataset))
+        for pass_i in range(1 << 30):
+            rng = np.random.default_rng((self.seed, self.epoch, pass_i) if self.shuffle else (0,))
+            inds = rng.permutation(self.n) if self.shuffle else np.arange(self.n)
+            yield from inds[self.rank::self.world].tolist()
+
+
+class DataLoader:
+    """The items of a dataset in the sampler's order, or in its own
+    (shuffled under ``shuffle``).
+
+    Training (``infinite``) cycles a :class:`TrainSampler`; the trainer
+    stops at ``ep_iter`` (IterationBasedBatchSampler semantics).  Every item
+    takes its sequence number as its draw number.  ``workers`` > 0 prepares
+    upcoming items in a thread pool (the host's image decode and ray
+    sampling overlap the device's step), except under image-size batching
+    (``hw_meta``), whose per-batch size is shared state.  ``skip_next``
+    skips that many items on the next pass without preparing them (a
+    mid-epoch resume)."""
+
+    def __init__(self, dataset, sampler=None, shuffle=False, seed: int = 0,
+                 infinite: bool = False, hw_meta=None, batch_size: int = 1, workers: int = 0):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.shuffle = shuffle
+        self.infinite = infinite
+        self.hw_meta = hw_meta         # (min_hw, max_hw) for image-size batching
+        self.batch_size = batch_size
+        self.workers = int(workers)
+        self.rng = np.random.default_rng(seed)
+        self.skip_next = 0
+        if infinite and sampler is None:
+            self.sampler = TrainSampler(len(dataset), shuffle=shuffle, seed=seed)
+
+    def _draw_hw(self):
+        """A random (H, W) a batch, rounded up to a multiple of 32
+        (ImageSizeBatchSampler.generate_height_width, samplers.py:21-28)."""
+        (hmin, wmin), (hmax, wmax) = self.hw_meta
+        h = int(self.rng.integers(hmin, hmax + 1))
+        w = int(self.rng.integers(wmin, wmax + 1))
+        return (h | 31) + 1, (w | 31) + 1
+
+    def set_epoch(self, e):
+        if isinstance(self.sampler, TrainSampler):
+            self.sampler.epoch = e
+
+    def _iter_indices(self):
+        skip, self.skip_next = self.skip_next, 0
+        for k, i in enumerate(self.sampler):
+            if k >= skip:
+                yield k, i
+
+    def _prefetched(self):
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        depth = self.workers + 2 * self.batch_size
+        it = self._iter_indices()
+        with ThreadPoolExecutor(self.workers) as pool:
+            pending = deque()
+
+            def submit():
+                try:
+                    k, i = next(it)
+                except StopIteration:
+                    return
+                pending.append(pool.submit(self.dataset.__getitem__, i, k))
+
+            for _ in range(depth):
+                submit()
+            try:
+                while pending:
+                    yield pending.popleft().result()
+                    submit()
+            finally:
+                for f in pending:
+                    f.cancel()
+
+    def __iter__(self):
+        if self.infinite:
+            if self.workers > 0 and self.hw_meta is None:
+                yield from self._prefetched()
+                return
+            for k, i in self._iter_indices():
+                if self.hw_meta is not None and k % self.batch_size == 0:
+                    self.dataset.forced_hw = self._draw_hw()
+                yield self.dataset.__getitem__(i, k)
+            return
+        if self.sampler is not None:
+            inds = list(self.sampler)
+        else:
+            inds = list(range(len(self.dataset)))
+            if self.shuffle:
+                self.rng.shuffle(inds)
         for i in inds:
             yield self.dataset[i]
 
@@ -730,11 +956,19 @@ def make_dataset(cfg, is_train: bool, device="cuda"):
 
 
 def make_data_loader(cfg, is_train: bool, device="cuda"):
-    """The test loader of the reference (``make_data_loader``'s test branch):
-    ``cfg.test.sampler`` FrameSampler or none."""
-    if is_train:
-        _not_ported("the training loader (TrainSampler, prefetch)", 10)
+    """The training loader (infinite, ``cfg.train`` shuffle, workers and
+    batch sampler) or the test loader (``cfg.test.sampler`` FrameSampler,
+    MeshFrameSampler or none)."""
     dataset = make_dataset(cfg, is_train, device=device)
+    if is_train:
+        hw_meta = None
+        if cfg.train.batch_sampler == 'image_size' and \
+                cfg.train.sampler_meta.strategy != 'origin':
+            hw_meta = (tuple(cfg.train.sampler_meta.min_hw),
+                       tuple(cfg.train.sampler_meta.max_hw))
+        return DataLoader(dataset, shuffle=cfg.train.shuffle, infinite=True, hw_meta=hw_meta,
+                          batch_size=int(cfg.train.batch_size),
+                          workers=int(cfg.train.num_workers))
     sampler_name = cfg.test.get('sampler', 'FrameSampler')
     if sampler_name == 'MeshFrameSampler':
         sampler = MeshFrameSampler(dataset, cfg.test.frame_sampler_interval,

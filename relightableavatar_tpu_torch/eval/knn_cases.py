@@ -4,10 +4,15 @@
 :func:`knn_cases` gives the exactness cases at the kernel's boundaries,
 :func:`record_knn_inputs` records the KNN inputs of a rendered frame, and
 :func:`time_in_turns` times several functions in turns with CUDA events.
+:func:`save_knn_failure` keeps an input on which the kernel and its plain
+version disagreed, for :func:`load_knn_failure` to replay on the CPU.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import os
+import re
 import statistics
 
 import numpy as np
@@ -27,6 +32,35 @@ CASE_P = (1, 31, 33, 63, 65, 127, 129, 191, 193, 255, 257,
 CASE_N = (3, 10239, 10240, 10241)
 KNN_CASE_NAMES = ([f"P={P}" for P in CASE_P] + [f"N={n}" for n in CASE_N]
                   + ["duplicated", "on_vertices", "far_1km"])
+
+
+FAILURE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+
+
+def cloud_sha256(verts) -> str:
+    """sha256 of the vertex cloud's float32 bytes."""
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(verts, np.float32)).tobytes()).hexdigest()
+
+
+def save_knn_failure(case: str, pts, verts, d2k, ik, d2r, ir, out_dir: str = FAILURE_DIR) -> str:
+    """Write the points, the vertex cloud, the kernel's (d2, idx) and the
+    plain version's to ``out_dir/knn_fail_<case>.npz`` (the case name made
+    file-safe); returns the path."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"knn_fail_{re.sub(r'[^A-Za-z0-9_.=-]+', '_', case)}.npz")
+    host = lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    np.savez(path, case=np.asarray(case), pts=host(pts), verts=host(verts),
+             kernel_d2=host(d2k), kernel_idx=host(ik), plain_d2=host(d2r), plain_idx=host(ir))
+    return path
+
+
+def load_knn_failure(path: str) -> dict:
+    """The arrays :func:`save_knn_failure` wrote, and the cloud's sha256."""
+    with np.load(path) as f:
+        out = {k: f[k] for k in f.files}
+    out["case"] = str(out["case"])
+    out["verts_sha256"] = cloud_sha256(out["verts"])
+    return out
 
 
 def synthetic_points(verts: torch.Tensor, P: int, rng) -> torch.Tensor:

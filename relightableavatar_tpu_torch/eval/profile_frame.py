@@ -10,8 +10,10 @@ SDF grid bake, slice sweep, miss skip, bfloat16 MLPs); ``sweep``,
 ``relight_sweep_8light`` (``golden.sweep_frame_cfg()``: the accel stack
 without the miss skip, 8 lights re-shaded); ``volume`` and ``volume_cull32``,
 ``novel_view_512`` and ``novel_view_512_cull32``
-(``golden.volume_frame_cfg()``: the stage-1 network, 128 samples a ray).
-Each is rendered once to warm up; then ``REPS`` timed frames of each in
+(``golden.volume_frame_cfg()``: the stage-1 network, 128 samples a ray);
+``train``, bench.py's reference stage-1 train step (``eval/train_check.py``:
+4 frames x 1024 rays x 128 samples, bf16, the fixture's parameters), one
+step standing for a frame.  Each is rendered once to warm up; then ``REPS`` timed frames of each in
 turns (forward, then backward, ...); then one frame of each with a device
 sync after every stage (bake, sweep, miss march, ray blocks, assembly; the
 sweep's base pass and re-shade; the volume's cull bake and blocks); then
@@ -35,7 +37,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from relightableavatar_tpu_torch.data.datasets import load_lighting
-from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.eval import golden, train_check
 from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                              SphereTracingRenderer)
@@ -110,7 +112,9 @@ def _report(name, renderer, batch, n_rays, walls) -> None:
     device_s = sum(us for _, us, _ in rows) / 1e6
     span_s = (last - first) / 1e6
     unprof_s = statistics.median(walls)
-    print(f"[{name}] frame {golden.FRAME_SIZE}x{golden.FRAME_SIZE}: {n_rays} rays; wall "
+    what = "step" if isinstance(renderer, TrainStep) else \
+        f"frame {golden.FRAME_SIZE}x{golden.FRAME_SIZE}"
+    print(f"[{name}] {what}: {n_rays} rays; wall "
           "times without the profiler: " + ", ".join(f"{w:.3f} s" for w in walls), flush=True)
     print(f"[{name}] device busy {busy_s:.3f} s = {busy_s / unprof_s:.1%} of the median "
           f"unprofiled wall time {unprof_s:.3f} s, {busy_s / wall:.1%} of the wall time "
@@ -128,11 +132,30 @@ def _report(name, renderer, batch, n_rays, walls) -> None:
         print(f"[{name}]   {us / 1e3:10.3f} ms  x{count:6d}  {ev_name[:90]}")
 
 
+class TrainStep:
+    """bench.py's reference train step behind the renderers' interface:
+    ``render(batch)`` takes one optimiser step on ``batch``."""
+
+    def __init__(self, cfg, params=None, mcfg=None, device="cuda"):
+        self.trainer, self.batch = train_check.make_step(cfg, device, train_check.BENCH_R)
+        self.time_stages = False
+        self.last_frame = {}
+
+    def render(self, batch):
+        self.trainer.step(batch, 0)
+
+
+def _train_cfg():
+    return train_check.step_cfg(train_check.BENCH_B, train_check.BENCH_S, bf16=True,
+                                perturb=True)
+
+
 FRAMES = (("exact", golden.frame_cfg, SphereTracingRenderer),
           ("accel", golden.accel_frame_cfg, SphereTracingRenderer),
           ("sweep", golden.sweep_frame_cfg, NovelLightRenderer),
           ("volume", golden.volume_frame_cfg, VolumeRenderer),
-          ("volume_cull32", lambda: golden.volume_frame_cfg(32), VolumeRenderer))
+          ("volume_cull32", lambda: golden.volume_frame_cfg(32), VolumeRenderer),
+          ("train", _train_cfg, TrainStep))
 
 
 def main() -> None:
@@ -148,13 +171,18 @@ def main() -> None:
         if len(sys.argv) > 1 and name not in sys.argv[1:]:
             continue
         cfg = cfg()
-        ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
-        renderer = cls(cfg, params, mcfg, device="cuda")
-        batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+        if cls is TrainStep:
+            renderer = TrainStep(cfg)
+            batch, n_rays = renderer.batch, train_check.BENCH_B * train_check.BENCH_R
+        else:
+            ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
+            renderer = cls(cfg, params, mcfg, device="cuda")
+            batch, mab = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+            n_rays = int(mab.sum())
         if cls is NovelLightRenderer:
             batch.novel_lights = load_lighting(cfg)
         _wall(renderer, batch)
-        frames[name] = (renderer, batch, int(mab.sum()), [])
+        frames[name] = (renderer, batch, n_rays, [])
     order = list(frames)
     for rep in range(REPS):
         turn = order if rep % 2 == 0 else order[::-1]
@@ -166,6 +194,8 @@ def main() -> None:
         _wall(renderer, batch)
         renderer.time_stages = False
         lf = renderer.last_frame
+        if not lf:
+            continue
         print(f"[{name}] with a device sync after each stage: " + ", ".join(
             f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in lf.items() if k.endswith('_s'))
             + f"; ray blocks rendered {lf.get('blocks_rendered', lf.get('blocks'))}"

@@ -1,6 +1,7 @@
-"""AniSDF inference (``relightableavatar_tpu/models/anisdf.py``): inverse-LBS
-warp with KNN skinning, the hierarchical distance query (HDQ) world SDF,
-and the network forward with autodiff normals.
+"""AniSDF (``relightableavatar_tpu/models/anisdf.py``): the parameter
+initialisation, inverse-LBS warp with KNN skinning, the hierarchical distance
+query (HDQ) world SDF, and the network forward with autodiff normals, for
+inference and for the stage-1 training step.
 
 The KNN is always the exact top 3 (``ops/knn.py``); MLPs run in float32 or,
 under ``tpu.bf16_mlp`` / ``tpu.bf16_act``, with bfloat16 matmuls
@@ -15,9 +16,10 @@ import torch
 import torch.nn.functional as F
 
 from relightableavatar_tpu_torch.ops import lbs
-from relightableavatar_tpu_torch.ops.embedder import positional_encoding
+from relightableavatar_tpu_torch.ops.embedder import embed_dim, positional_encoding
 from relightableavatar_tpu_torch.ops.knn import knn_top3
-from relightableavatar_tpu_torch.ops.mlp import linear_apply, mlp_apply, ssdf_apply
+from relightableavatar_tpu_torch.ops.mlp import (linear_apply, linear_init, mlp_apply, mlp_init,
+                                                 ssdf_apply, ssdf_init)
 from relightableavatar_tpu_torch.ops.point_mesh import signed_mesh_distance
 from relightableavatar_tpu_torch.ops.sdf import sdf_to_occ
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
@@ -92,6 +94,61 @@ class AniSDFConfig(NamedTuple):
             bf16_act=bool(cfg.tpu.bf16_act),
             smpl_distance=bool(cfg.smpl_distance),
         )
+
+
+# ---------------------------------------------------------------- params init
+def init_anisdf(generator: torch.Generator, mcfg: AniSDFConfig, device="cpu") -> dict:
+    """Parameters of the network ``mcfg`` names, in the layout of the JAX
+    package's ``init_anisdf`` (the reference module structure, so checkpoint
+    keys map), drawn from ``generator`` (a CPU generator) and moved to
+    ``device``.  Each sub-network draws in the JAX package's order: residual
+    MLP, SDF MLP, render MLP, relight heads."""
+    resd_in = embed_dim(3, mcfg.xyz_res)
+    sdf_in = embed_dim(3, mcfg.sdf_res)
+    params = {
+        # ResidualDeformation (base_network.py:14-42)
+        "resd": mlp_init(generator, input_ch=resd_in + mcfg.cond_dim, W=256, D=8,
+                         out_ch=3, zero_out_bias=True),
+        # SignedDistanceNetwork (base_network.py:45-129)
+        "sdf": ssdf_init(generator, d_in=sdf_in, d_hidden=256, n_layers=8,
+                         d_out=1 + mcfg.feat_dim),
+        "beta": torch.tensor(0.1),
+        # RenderNetwork (base_network.py:132-171): 5 weight-normed linears
+        "rgb": _render_net_init(generator, mcfg),
+    }
+    if mcfg.relight:
+        params.update(init_relight_heads(generator, mcfg))
+    return _to_device(params, torch.device(device))
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _render_net_init(generator: torch.Generator, mcfg: AniSDFConfig) -> dict:
+    W = 256
+    in0 = 3 + mcfg.feat_dim + embed_dim(3, mcfg.view_res)
+    dims = [(in0, W), (W, W), (W, W), (W + mcfg.cond_dim, W), (W, 3)]
+    return {f"l{i}": linear_init(generator, d_in, d_out, weight_norm=True)
+            for i, (d_in, d_out) in enumerate(dims)}
+
+
+def init_relight_heads(generator: torch.Generator, mcfg: AniSDFConfig) -> dict:
+    """Albedo and roughness MLP heads and the learnable environment map
+    (reference relight_network.py:45-77)."""
+    env_c = 1 if mcfg.achro_light else 3
+    return {
+        "albedo": mlp_init(generator, input_ch=mcfg.feat_dim, W=mcfg.relight_width,
+                           D=mcfg.relight_depth, out_ch=3, w_init="kaiming_normal"),
+        "roughness": mlp_init(generator, input_ch=mcfg.feat_dim, W=mcfg.relight_width,
+                              D=mcfg.relight_depth, out_ch=1, w_init="kaiming_normal"),
+        "env": torch.rand((mcfg.env_h * mcfg.envmap_upscale,
+                           mcfg.env_w * mcfg.envmap_upscale, env_c), generator=generator) * 0.2,
+    }
 
 
 def global_env_map(params: dict, mcfg: AniSDFConfig) -> torch.Tensor:
@@ -281,11 +338,30 @@ def hdq_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------- full forward
+def _normals(ograd, out, ctx):
+    """The observed gradient's direction warped bigpose -> tpose -> pose ->
+    world."""
+    norm = lbs.normalize(ograd)
+    norm = lbs.pose_dirs_to_tpose_dirs(norm, A_bw=out.big_A_bw)
+    norm = lbs.tpose_dirs_to_pose_dirs(norm, A_bw=out.A_bw, R_inv=out.R_inv)
+    norm = lbs.pose_dirs_to_world_dirs(norm, ctx["R"])
+    return lbs.normalize(norm)
+
+
 def forward_geometry(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
-                     v: torch.Tensor | None):
-    """Inference branch of base_network.py:456-494: warp, residual + SDF,
-    the observed gradient d sdf / d bpts by autograd, normals warped
-    bigpose -> tpose -> pose -> world."""
+                     v: torch.Tensor | None, training: bool = False):
+    """base_network.py:456-494: warp, residual + SDF, the observed gradient
+    d sdf / d bpts by autograd, normals warped bigpose -> tpose -> pose ->
+    world.  Returns (ret, out): ``out`` the per-point geometry, ``ret`` the
+    training terms (empty in inference).
+
+    The warp depends on no parameter and runs without a graph.  Inference
+    detaches everything.  ``training`` keeps the graph to the parameters:
+    one ``autograd.grad(sdf.sum(), [bpts, cpts], create_graph=True)`` gives
+    the observed gradient (JAX's ``cgrad + J_resd^T cgrad``, the chain rule
+    through the residual) and the canonical one, and ``ret`` holds
+    ``reg_mask``, ``residuals``, ``observed_gradients`` and ``gradients``,
+    masked to the band."""
     with torch.no_grad():
         out = world_to_bigpose(mcfg, ctx, x, v=v)
     cond = condition_vector(ctx)[None, :].expand(x.shape[0], mcfg.cond_dim)
@@ -294,16 +370,24 @@ def forward_geometry(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
         resd = residuals(params, mcfg, bpts, cond)
         cpts = bpts + resd
         sdf, feat = sdf_feat(params, mcfg, cpts)
-        (ograd,) = torch.autograd.grad(sdf.sum(), bpts)
-    sdf, feat, resd, cpts = sdf.detach(), feat.detach(), resd.detach(), cpts.detach()
-
-    with torch.no_grad():
+        if training:
+            ograd, cgrad = torch.autograd.grad(sdf.sum(), [bpts, cpts], create_graph=True)
+        else:
+            (ograd,) = torch.autograd.grad(sdf.sum(), bpts)
+    ret = dotdict()
+    if training:
         occ = sdf_to_occ(sdf, beta_of(params))
-        norm = lbs.normalize(ograd)
-        norm = lbs.pose_dirs_to_tpose_dirs(norm, A_bw=out.big_A_bw)
-        norm = lbs.tpose_dirs_to_pose_dirs(norm, A_bw=out.A_bw, R_inv=out.R_inv)
-        norm = lbs.pose_dirs_to_world_dirs(norm, ctx["R"])
-        norm = lbs.normalize(norm)
+        norm = _normals(ograd, out, ctx)
+        m = out.mask[:, None].to(resd.dtype)
+        ret.reg_mask = out.mask
+        ret.residuals = resd * m
+        ret.observed_gradients = ograd * m
+        ret.gradients = cgrad * m
+    else:
+        sdf, feat, resd, cpts = sdf.detach(), feat.detach(), resd.detach(), cpts.detach()
+        with torch.no_grad():
+            occ = sdf_to_occ(sdf, beta_of(params))
+            norm = _normals(ograd, out, ctx)
 
     out.bpts = out.bpts.detach()
     out.cpts = cpts
@@ -313,22 +397,36 @@ def forward_geometry(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
     out.cond = cond
     out.occ = occ
     out.sdf = sdf
-    return out
+    return ret, out
 
 
-@torch.no_grad()
 def forward(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
-            v: torch.Tensor) -> dotdict:
-    """Inference forward (base_network.py:496-515 / relight_network.py:91-120):
-    ret.raw (P, C) = [cpts, bpts, resd, albedo, rough, norm, occ] (relight)
-    or [cpts, bpts, resd, norm, rgb, occ], zero outside the band."""
-    out = forward_geometry(params, mcfg, ctx, x, v)
-    if mcfg.relight:
-        albedo = albedo_head(params, mcfg, out.feat)
-        rough = roughness_head(params, mcfg, out.feat)
-        raw = torch.cat([albedo, rough, out.norm, out.occ], dim=-1)
-    else:
+            v: torch.Tensor, training: bool = False) -> dotdict:
+    """Network forward (base_network.py:496-515 / relight_network.py:91-120).
+    Inference (under no_grad): ret.raw (P, C) = [cpts, bpts, resd, albedo,
+    rough, norm, occ] (relight) or [cpts, bpts, resd, norm, rgb, occ], zero
+    outside the band.  ``training`` (stage 1): ret.raw = [norm, rgb, occ]
+    with the graph to the parameters, beside :func:`forward_geometry`'s
+    training terms; the relight training outputs are ROADMAP item 10b."""
+    if training:
+        if mcfg.relight:
+            raise NotImplementedError(
+                "the relight network's training outputs (albedo, roughness and their "
+                "jittered pair) are not ported yet (ROADMAP item 10b)")
+        ret, out = forward_geometry(params, mcfg, ctx, x, v, training=True)
         rgb = render_rgb(params, mcfg, out.bvds, out.norm, out.feat, out.cond)
         raw = torch.cat([out.norm, rgb, out.occ], dim=-1)
-    raw = torch.cat([out.cpts, out.bpts, out.resd, raw], dim=-1)
-    return dotdict(raw=raw * out.mask[:, None], mask=out.mask)
+        ret.raw = raw * out.mask[:, None]
+        ret.mask = out.mask
+        return ret
+    with torch.no_grad():
+        _, out = forward_geometry(params, mcfg, ctx, x, v)
+        if mcfg.relight:
+            albedo = albedo_head(params, mcfg, out.feat)
+            rough = roughness_head(params, mcfg, out.feat)
+            raw = torch.cat([albedo, rough, out.norm, out.occ], dim=-1)
+        else:
+            rgb = render_rgb(params, mcfg, out.bvds, out.norm, out.feat, out.cond)
+            raw = torch.cat([out.norm, rgb, out.occ], dim=-1)
+        raw = torch.cat([out.cpts, out.bpts, out.resd, raw], dim=-1)
+        return dotdict(raw=raw * out.mask[:, None], mask=out.mask)

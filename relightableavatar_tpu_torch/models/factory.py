@@ -7,15 +7,20 @@ Checkpoints follow the reference's bootstrap: the relight stage first takes
 its stage-1 geometry (``resd``, ``sdf``, ``beta``, ``rgb``) from
 ``cfg.geometry_pretrain`` (strict=False, ``relight_network.py:36-37``),
 then the newest checkpoint of ``cfg.trained_model_dir`` replaces every
-parameter.  The JAX package starts from a random initialisation and renders
-whatever no checkpoint covered; the port has no such initialisation, so a
-network that no checkpoint covers raises and names what it searched.
+parameter; a reference ``latest.pth`` is imported through the ``.pth``
+mapping.  The JAX package starts every network from a random initialisation
+and renders whatever no checkpoint covered; the port starts from
+``init_anisdf`` only when the caller asks for a cold start (the train
+entry), and otherwise raises on a network that no checkpoint covers, naming
+what it searched.
 """
 from __future__ import annotations
 
 from os.path import exists, isdir, join
 
-from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+import torch
+
+from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig, init_anisdf
 from relightableavatar_tpu_torch.renderer.mesh import MeshRenderer
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                              SphereTracingRenderer)
@@ -46,10 +51,8 @@ def _read_flat(model_dir: str):
         if flat is not None:
             return flat
         if exists(join(model_dir, 'latest.pth')):
-            raise NotImplementedError(
-                f"{join(model_dir, 'latest.pth')}: importing reference .pth "
-                "checkpoints is not ported yet (ROADMAP item 10); convert it to "
-                "npz with the JAX package's train/checkpoints.py")
+            from relightableavatar_tpu_torch.train.checkpoints import pth_to_flat
+            return pth_to_flat(join(model_dir, 'latest.pth'))
         return None
     if model_dir.endswith('.npz') and exists(model_dir):
         import numpy as np
@@ -58,10 +61,13 @@ def _read_flat(model_dir: str):
     return None
 
 
-def make_network(cfg, device="cuda"):
+def make_network(cfg, device="cuda", cold_start: bool = False, seed: int = 0):
     """Returns (params, mcfg). ``network_module`` (or ``cfg.relighting``)
     selects the stage (deform vs relight) as the reference config strings
-    do.  Raises when no checkpoint holds every parameter of the network."""
+    do.  Without ``cold_start`` it raises when no checkpoint holds every
+    parameter of the network; with it, what no checkpoint covers comes from
+    ``init_anisdf`` with a generator seeded by ``seed`` (the JAX package's
+    ``make_network`` seeds its PRNG key with 0 too)."""
     relight = ('relight' in cfg.network_module) or cfg.relighting
     cfg.relighting = cfg.relighting or relight
     mcfg = AniSDFConfig.from_cfg(cfg)
@@ -92,6 +98,12 @@ def make_network(cfg, device="cuda"):
             log(f'loaded network from {cfg.trained_model_dir}', 'green')
             return params, mcfg
     missing = sorted(set(param_shapes(mcfg)) - set(flat))
+    if missing and cold_start:
+        from relightableavatar_tpu_torch.train.checkpoints import named_params
+        init = dict(named_params(init_anisdf(torch.Generator().manual_seed(seed), mcfg)))
+        log(f'cold start: {len(missing)} parameters from init_anisdf (seed {seed})', 'green')
+        flat = {**{k: v.numpy() for k, v in init.items()}, **flat}
+        missing = []
     if missing:
         raise FileNotFoundError(
             f"no checkpoint holds every parameter of the network: {len(missing)} "

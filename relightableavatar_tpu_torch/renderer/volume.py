@@ -1,8 +1,10 @@
-"""Stage-1 volume renderer of AniSDF, inference
+"""Stage-1 volume renderer of AniSDF
 (``relightableavatar_tpu/renderer/volume.py``; reference
 ``lib/networks/renderer/base_renderer.py``): uniform depth samples along
-each ray, the network on all P x S points of a ray block, transmittance
-compositing and the channel split of the raw outputs.
+each ray (stratified in training), the network on all P x S points of a ray
+block, transmittance compositing and the channel split of the raw outputs.
+``render(training=True)`` and :func:`train_block` keep the graph to the
+parameters for the training step.
 
 ``tpu.volume_cull`` = K evaluates the network on only the K samples of each
 ray with the largest proxy compositing weight, computed from a per-frame
@@ -29,13 +31,48 @@ CULL_DILATE = 2     # samples each side of a proxy weight that share its score
 
 
 def sample_fractions(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """``jnp.linspace(0, 1, n)`` as XLA evaluates it: ``i * float32(1 / (n - 1))``
-    (a product with the rounded reciprocal, not a division, so some
-    interior values differ by one ulp from ``i / (n - 1)``), the last 1."""
+    """``jnp.linspace(0, 1, n)`` as XLA evaluates it: ``i * (1 / (n - 1))``
+    with the reciprocal rounded to ``dtype`` (a product, not a division, so
+    some interior values differ by one ulp from ``i / (n - 1)``), the last 1."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
     return torch.arange(n, dtype=dtype, device=device) * torch.tensor(
-        np.float32(1.0 / (n - 1)), dtype=dtype, device=device)
+        1.0 / (n - 1), dtype=dtype, device=device)
+
+
+def stratified(z_vals: torch.Tensor, t_rand: torch.Tensor) -> torch.Tensor:
+    """Jitter each sample within its interval (base_renderer.py:15-31):
+    ``t_rand`` (P, S) uniform in [0, 1), drawn by the caller."""
+    mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+    upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
+    lower = torch.cat([z_vals[:, :1], mids], dim=-1)
+    return lower + (upper - lower) * t_rand
+
+
+def train_block(params, mcfg: AniSDFConfig, ctx, ray_o, ray_d, near, far,
+                n_samples: int, bg_brightness: float, t_rand=None) -> dotdict:
+    """The training render of a ray block (JAX ``_render_block`` with
+    ``training``, ``train/trainer.py:_volume_forward``): the network's
+    training forward on all P x S points, composited.  Returns weights and
+    z_vals (P, S), the composited raw channels ``raw_map`` (P, 6) =
+    [norm, rgb], ``acc_map`` and the forward's training terms, all with
+    the graph to the parameters.  ``t_rand`` (P, S) stratifies the samples;
+    None keeps them uniform.  No sample culling in training."""
+    P = ray_o.shape[0]
+    S = n_samples
+    t_vals = sample_fractions(S, ray_o.dtype, ray_o.device)
+    z_vals = near[:, None] * (1.0 - t_vals) + far[:, None] * t_vals
+    if t_rand is not None:
+        z_vals = stratified(z_vals, t_rand)
+    pts = ray_o[:, None, :] + ray_d[:, None, :] * z_vals[..., None]
+    ret = anisdf.forward(params, mcfg, ctx, pts.reshape(P * S, 3),
+                         ray_d[:, None, :].expand(P, S, 3).reshape(P * S, 3), training=True)
+    raw = ret.raw.reshape(P, S, -1)
+    weights, raw_map, acc_map = volume_rendering(raw[..., :-1], raw[..., -1],
+                                                 bg_brightness=bg_brightness)
+    return dotdict(weights=weights, z_vals=z_vals, raw_map=raw_map, acc_map=acc_map,
+                   reg_mask=ret.reg_mask, residuals=ret.residuals,
+                   gradients=ret.gradients, observed_gradients=ret.observed_gradients)
 
 
 @torch.no_grad()
@@ -131,21 +168,61 @@ class VolumeRenderer:
                               self._grid_res, packed=True)
         return grid, gbox[0], gbox[1]
 
-    @torch.no_grad()
-    def render(self, batch, training: bool = False) -> dotdict:
+    def render(self, batch, training: bool = False,
+               generator: torch.Generator | None = None) -> dotdict:
         """batch: ray_o, ray_d (..., 3), near, far (...), ctx -> maps (P, ...)
-        on the device: rgb, acc, depth, norm, cpts, bpts, resd."""
+        on the device: rgb, acc, depth, norm, cpts, bpts, resd.
+
+        ``training``: the maps rgb and acc, the compositing weights and
+        z_vals, and the forward's residuals, observed and canonical
+        gradients, with the graph to the parameters; ``tpu.volume_cull`` is
+        ignored, and under ``perturb`` the samples are stratified by draws
+        from ``generator`` (on the device), one (block, S) draw a block."""
         if training:
-            raise NotImplementedError("VolumeRenderer.render(training=True) is not ported")
+            return self._render_train(batch, generator)
+        with torch.no_grad():
+            return self._render(batch)
+
+    def _rays(self, batch):
         cfg = self.cfg
-        dev = self.device
-        self.last_frame = dotdict()
         ray_o = np.asarray(batch.ray_o, np.float32).reshape(-1, 3)
         ray_d = np.asarray(batch.ray_d, np.float32).reshape(-1, 3)
         near = np.clip(np.asarray(batch.near, np.float32).reshape(-1), cfg.clip_near, None)
         far = np.clip(np.asarray(batch.far, np.float32).reshape(-1), None, cfg.clip_far)
+        return pad_rays(ray_o, ray_d, near, far, int(cfg.tpu.ray_block), far_pad=0.2)
+
+    def _render_train(self, batch, generator) -> dotdict:
+        cfg = self.cfg
+        dev = self.device
+        ray_o, ray_d, near, far, P = self._rays(batch)
+        if P == 0:
+            return dotdict(rgb_map=torch.zeros((0, 3), device=dev),
+                           acc_map=torch.zeros((0,), device=dev))
         block = int(cfg.tpu.ray_block)
-        ray_o, ray_d, near, far, P = pad_rays(ray_o, ray_d, near, far, block, far_pad=0.2)
+        S = int(cfg.n_samples)
+        put = lambda a: torch.as_tensor(a, device=dev)
+        outs = []
+        for i in range(0, len(ray_o), block):
+            s = slice(i, i + block)
+            t_rand = None
+            if cfg.perturb > 0:
+                t_rand = torch.rand((len(ray_o[s]), S), generator=generator, device=dev)
+            o = train_block(self.params, self.mcfg, batch.ctx, put(ray_o[s]), put(ray_d[s]),
+                            put(near[s]), put(far[s]), S, float(cfg.bg_brightness), t_rand)
+            outs.append(dotdict(residuals=o.residuals, observed_gradients=o.observed_gradients,
+                                gradients=o.gradients, weights=o.weights, z_vals=o.z_vals,
+                                rgb_map=o.raw_map[..., 3:], acc_map=o.acc_map))
+        # per-point terms keep every block's points; per-ray maps drop the padding
+        return dotdict({k: torch.cat([o[k] for o in outs], dim=0)
+                        if k in ('residuals', 'observed_gradients', 'gradients')
+                        else torch.cat([o[k] for o in outs], dim=0)[:P] for k in outs[0]})
+
+    def _render(self, batch) -> dotdict:
+        cfg = self.cfg
+        dev = self.device
+        self.last_frame = dotdict()
+        block = int(cfg.tpu.ray_block)
+        ray_o, ray_d, near, far, P = self._rays(batch)
         if P == 0:
             return dotdict(rgb_map=torch.zeros((0, 3), device=dev),
                            acc_map=torch.zeros((0,), device=dev))

@@ -3,7 +3,8 @@
 such as ``sdf/layers/3/v``; linear weights are stored (in, out) and
 weight-normed layers keep their ``g``/``v`` form.  :func:`load_model` reads
 the checkpoints that the JAX package's ``save_model`` writes
-(``train/checkpoints.py:72-131``); the ``.pth`` importer is not ported yet.
+(``train/checkpoints.py:72-131``); the port's own training checkpoints
+and the ``.pth`` importer are in ``train/checkpoints.py``.
 """
 from __future__ import annotations
 
@@ -110,6 +111,20 @@ def load_params(path: str, device="cuda", mcfg: AniSDFConfig | None = None) -> d
     return params_from_flat(flat, device=device, mcfg=mcfg)
 
 
+def checkpoint_path(model_dir: str, epoch: int = -1) -> str | None:
+    """``latest.npz`` (epoch -1), else ``<epoch>.npz`` when there, else the
+    newest epoch file; None when the folder holds none."""
+    if not os.path.isdir(model_dir):
+        return None
+    if epoch == -1 and os.path.exists(os.path.join(model_dir, "latest.npz")):
+        return os.path.join(model_dir, "latest.npz")
+    eps = sorted(int(m.group(1)) for f in os.listdir(model_dir)
+                 if (m := re.match(r"^(\d+)\.npz$", f)))
+    if not eps:
+        return None
+    return os.path.join(model_dir, f"{epoch if epoch in eps else eps[-1]}.npz")
+
+
 def read_checkpoint(model_dir: str, epoch: int = -1):
     """The flat parameters, epoch and aux dict of the newest npz checkpoint
     in ``model_dir`` (``latest.npz``, else the highest ``<epoch>.npz``, or
@@ -117,17 +132,9 @@ def read_checkpoint(model_dir: str, epoch: int = -1):
     ``save_model``: parameter keys carry a ``net:`` prefix, ``epoch`` is a
     scalar and ``aux`` a JSON string (``train/checkpoints.py:101-131``).
     Returns (None, 0, {}) when there is none."""
-    if not os.path.isdir(model_dir):
+    path = checkpoint_path(model_dir, epoch)
+    if path is None:
         return None, 0, {}
-    if epoch == -1 and os.path.exists(os.path.join(model_dir, "latest.npz")):
-        path = os.path.join(model_dir, "latest.npz")
-    else:
-        eps = sorted(int(m.group(1)) for f in os.listdir(model_dir)
-                     if (m := re.match(r"^(\d+)\.npz$", f)))
-        if not eps:
-            return None, 0, {}
-        e = epoch if epoch != -1 and epoch in eps else eps[-1]
-        path = os.path.join(model_dir, f"{e}.npz")
     with np.load(path) as f:
         flat = {k: f[k] for k in f.files}
     loaded_epoch = int(flat.pop("epoch", 0))

@@ -243,9 +243,15 @@ def test_make_network_refuses_to_render_without_a_checkpoint(tree, in_repo, tmp_
     with pytest.raises(FileNotFoundError, match="albedo"):
         make_network(cfg, device="cpu")
 
+    # a reference .pth is imported now; one of the stage-1 geometry alone
+    # still leaves the relight heads without parameters
     os.makedirs(cfg.trained_model_dir)
-    open(os.path.join(cfg.trained_model_dir, 'latest.pth'), 'wb').close()
-    with pytest.raises(NotImplementedError, match=r"\.pth"):
+    from test_torch_checkpoints import reference_state_dict
+    with np.load(make_synthetic.FIXTURE_PARAMS) as f:
+        sd = reference_state_dict({k: f[k] for k in f.files
+                                   if k.split('/')[0] in ('resd', 'sdf', 'beta', 'rgb')})
+    torch.save(dict(net=sd), os.path.join(cfg.trained_model_dir, 'latest.pth'))
+    with pytest.raises(FileNotFoundError, match="albedo"):
         make_network(cfg, device="cpu")
 
 

@@ -1,7 +1,8 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
 plain version on the card, the relight render on the card, the slice sweep
 and the bfloat16 MLP route on the card against the CPU, the bench-stack
-golden, the novel-light sweep, the ground frame, the volume frame,
+golden, the bfloat16 weight gradient, the stage-1 train step, the
+novel-light sweep, the ground frame, the volume frame,
 ``run -t evaluate`` and the mesh extraction on the card against the CPU, and
 the kernel on a chunk of the 5 mm mesh grid.  They skip with a reason where torch finds no CUDA device; on the
 card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
@@ -150,6 +151,63 @@ def test_bf16_route_on_the_card(cuda, keep_bf16):
     for got, ref, bound in ((outs[1], outs[0], bound_y), (grads[1], grads[0], bound_g)):
         err = (got - ref).abs()
         assert (err <= bound).all(), float((err / bound).max())
+
+
+def test_bf16_weight_gradient_on_the_card(cuda):
+    """The bfloat16 linear layer's weight gradient on the card (the autograd
+    function's ``xb^T g`` in float32, rounded to bfloat16) against the CPU
+    route's: nonzero, each entry within one bfloat16 step (2^-7 relative)
+    plus 1e-5 of the sum of its products' magnitudes; and through a double
+    backward (the eikonal path: the input gradient's square differentiated
+    with respect to the weight), cosine >= 0.999 to the CPU's."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(4099, 83)).astype(np.float32))
+    w0 = torch.as_tensor(rng.normal(size=(83, 256)).astype(np.float32) / 9)
+    b0 = torch.as_tensor(rng.normal(size=256).astype(np.float32))
+    first, second = [], []
+    for dev in ("cpu", cuda):
+        w = w0.to(dev).requires_grad_(True)
+        xd = x.to(dev).requires_grad_(True)
+        y = mlp.linear_apply({"w": w, "b": b0.to(dev)}, xd, bf16=True)
+        (gw,) = torch.autograd.grad(torch.tanh(y).sum(), w, retain_graph=True)
+        first.append(gw.cpu())
+        (gx,) = torch.autograd.grad(torch.tanh(y).sum(), xd, create_graph=True)
+        (gw2,) = torch.autograd.grad(gx.square().sum(), w)
+        second.append(gw2.cpu())
+    gy = 1 - torch.tanh(mlp.linear_apply({"w": w0, "b": b0}, x, bf16=True)) ** 2
+    bound = 2.0 ** -7 * first[0].abs() + 1e-5 * (x.to(torch.bfloat16).float().abs().T @ gy.abs())
+    assert (first[1] != 0).all() and ((first[1] - first[0]).abs() <= bound).all()
+    cos = torch.nn.functional.cosine_similarity(second[1].flatten(), second[0].flatten(), dim=0)
+    assert (second[1] != 0).any() and float(cos) >= 0.999, float(cos)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, bf16, tmp_path):
+    """One stage-1 step (``eval/train_check.py``'s small step) on the card
+    and on the CPU: float32, the loss within 1e-5 and each gradient within
+    1e-4 of its largest entry; bf16 with the residual MLP's last weight
+    re-drawn, every weight's gradient nonzero and its cosine >= 0.999 to
+    the CPU's.  The card's step launches the KNN kernel once a frame."""
+    from relightableavatar_tpu_torch.eval import train_check
+    res = {}
+    for dev in ("cpu", cuda):
+        cfg = train_check.step_cfg(train_check.CHECK_B, train_check.CHECK_S, bf16=bf16,
+                                   perturb=False, record_dir=str(tmp_path / str(dev)))
+        trainer, batch = train_check.make_step(cfg, dev, train_check.CHECK_R)
+        if bf16:
+            train_check.live_residual(trainer)
+        n0 = knn_cuda.KNN_TOP3.launches
+        res[str(dev)] = train_check.step_result(trainer, batch)
+        if dev != "cpu":
+            assert knn_cuda.KNN_TOP3.launches - n0 == train_check.CHECK_B
+    cmp = train_check.compare_grads(res["cuda"], res["cpu"])
+    if bf16:
+        for k, (rel, cos, top) in cmp.items():
+            if not k.endswith(("/b", "beta")):
+                assert top > 0 and cos >= 0.999, (k, cos)
+    else:
+        assert abs(res["cuda"]["loss"] - res["cpu"]["loss"]) <= 1e-5 * abs(res["cpu"]["loss"])
+        assert max(v[0] for v in cmp.values()) <= 1e-4, {k: v[0] for k, v in cmp.items()}
 
 
 def test_benchstack_golden_on_the_card(cuda):

@@ -146,10 +146,17 @@ def test_volume_cull_matches_exact(culled):
 
 
 def test_training_render_raises():
+    """The stage-1 training render is ported (tests/test_torch_train.py);
+    the relight network's training outputs are not yet, and raise naming
+    their ROADMAP item."""
     cfg = _cfg(golden.fixture_cfg(), 16, 64)
+    cfg.relighting = True
     ctx, params, mcfg = golden.load_fixture(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        VolumeRenderer(cfg, params, mcfg, device="cpu").render(dotdict(ctx=ctx), training=True)
+    assert mcfg.relight
+    rays = _rays(ctx['Th'].numpy(), 8, 2, 2.5, 0.3, 0.0, 1.0, 4.0)
+    with pytest.raises(NotImplementedError, match="10b"):
+        VolumeRenderer(cfg, params, mcfg, device="cpu").render(dotdict(ctx=ctx, **rays),
+                                                               training=True)
 
 
 def test_stage1_sphere_traced_bundle_matches_jax():
