@@ -83,7 +83,7 @@ Phases, each printing one flushed line with its wall seconds:
           at the exact settings with the canonical mesh as the geometry
           prior (``use_geometry True geometry_mesh``: its PSNR against the
           generated images, printed), the kernel timed on the prior's
-          vertices; the canonical and the posed mesh at 2.5 cm on the card
+          vertices beside the plain version and torch.cdist + topk; the canonical and the posed mesh at 2.5 cm on the card
           against the CPU (``eval/mesh_check.py``: equal faces, vertices
           within 1e-4 m, attributes within 2e-5)
   train   stage-1 training (``eval/train_check.py``): one step at bench.py's
@@ -103,6 +103,26 @@ Phases, each printing one flushed line with its wall seconds:
           temporary trained_model_dir, 2 epochs of 3 iterations: finite
           losses, the epoch files), ``resume True`` for a third epoch, and
           ``run -t network`` from the trained checkpoint
+  train-relight  stage-2 training (``eval/train_check.py``): the reference
+          relight step (2 frames x 1024 rays, 16 surface and 4 shadow
+          iterations, 16 x 32 light texels, shadow blocks of 32,768 rays,
+          bf16 MLPs) from the fixture's parameters, timed as the median of 3
+          steps after a warm-up on the host clock ending in a device sync,
+          with K1's launches a step, its peak memory and the analytic TFLOP
+          a step; the kernel bit for bit against the plain version on the
+          step's first full shadow block, timed beside it and torch.cdist +
+          topk; a small step (2 x 64 rays, the hits away from the
+          silhouette) on the card against the CPU with the same jitter:
+          float32 (loss within 1e-4, every gradient within 1e-3 of its
+          largest entry; the rays whose hit differs counted), then bf16 with
+          the residual MLP's zero last weight re-drawn (every weight's
+          gradient nonzero, the unused stage-1 render MLP aside, its cosine
+          to the CPU's >= 0.9 and each sub-network's, all its tensors
+          together, >= 0.995); then on [cli]'s tree ``python -m
+          relightableavatar_tpu_torch.train relighting True
+          geometry_pretrain <[train]'s checkpoint>`` (2 epochs of 3
+          iterations), ``resume True`` for a third epoch, and ``run -t
+          network relighting True`` from the stage-2 checkpoint
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them; where the kernel and its plain
@@ -206,6 +226,17 @@ TRAIN_LOSS_REL = 1e-5       # f32 step, card vs CPU
 TRAIN_GRAD_REL = 1e-4       # f32: max |card - cpu| / max |cpu| of each parameter's gradient
 TRAIN_BF16_COS = 0.999      # bf16: each weight gradient's cosine to the CPU path's
 TRAIN_CLI_ITERS = 3         # iterations an epoch of the CLI's training
+# the train-relight phase: the reference stage-2 step timed, a small step card vs CPU
+RELIGHT_STEPS = 3           # timed steps after one warm-up
+SHADOW_P = 32768            # rays a shadow block of the reference step
+RELIGHT_LOSS_REL = 1e-4     # f32 step, card vs CPU (PERF.md, before the first chip run)
+RELIGHT_GRAD_REL = 1e-3     # f32: max |card - cpu| / max |cpu| of each parameter's gradient
+# bf16: the stage-2 step's bf16 gradients move with the float32 summation
+# order (a one-ulp change of the sums on the CPU alone: tensors' cosines
+# down to 0.979, sub-networks' to 0.9991; PERF.md §6), so the bars are
+# five times those distances from 1
+RELIGHT_BF16_COS = 0.9      # each weight's gradient, cosine to the CPU's
+RELIGHT_BF16_NET_COS = 0.995  # each sub-network's gradient, all its tensors together
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -534,6 +565,10 @@ def mesh_phase(smi: str, tmp: str) -> dict:
     prior_knn = time_in_turns({"plain": lambda: knn_top3_reference(pts_r, ctx_r["pverts"]),
                                "kernel": lambda: knn_cuda.knn_top3_cuda(pts_r, ctx_r["pverts"])},
                               REPS)
+    prior_knn["library"] = yardstick_ms(pts_r, ctx_r["pverts"])[1]
+    ret["prior"] = dict(ms=prior_knn["kernel"], plain_ms=prior_knn["plain"],
+                        library_ms=prior_knn["library"],
+                        bound_ms=knn_bound_ms(TIMED_P, ctx_r["pverts"].shape[0])[0])
 
     # the coarse mesh on the card against the CPU
     t1 = time.perf_counter()
@@ -568,8 +603,9 @@ def mesh_phase(smi: str, tmp: str) -> dict:
           f"roughness {posed['roughness'].min():.4f}..{posed['roughness'].max():.4f}; evaluate "
           f"with the prior (exact, {CLI_FRAMES} frames) {prior_s:.1f} s: {fmt(metrics_r)}; ms a "
           f"frame after the first: {fmt(ms_r)}; the prior's {len(V)} verts as the KNN cloud: "
-          f"kernel {prior_knn['kernel']:.4f} ms / plain {prior_knn['plain']:.4f} ms at "
-          f"P={TIMED_P}; card vs CPU at {mesh_check.CHECK_VOXEL} m ({coarse_s:.1f} s): "
+          f"kernel {prior_knn['kernel']:.4f} ms / plain {prior_knn['plain']:.4f} ms / "
+          f"cdist+topk {prior_knn['library']:.4f} ms at P={TIMED_P}, bound "
+          f"{ret['prior']['bound_ms']:.4f} ms; card vs CPU at {mesh_check.CHECK_VOXEL} m ({coarse_s:.1f} s): "
           + "; ".join(f"{k} ({n} grid points) {d}" for k, (n, d) in coarse.items()))
     return ret
 
@@ -678,6 +714,7 @@ def train_phase(smi: str, tmp: str) -> dict:
     m = re.search(r"mean render time: ([\d.]+)s", log_n)
     check(m is not None, "run -t network from the trained checkpoint printed no render time")
     fmt = lambda t: ", ".join(f"{x:.3e}" for x in t)
+    ret["model_dir"] = mdir
     phase("train", t0, f"step at B={B} R={R} S={S} (budget {int(cfg.tpu.grad_sample_budget)}: "
           f"{NC} chunks of {RC} rays), bf16, fixture parameters ({smi}): median "
           f"{step_s * 1e3:.1f} ms of {TRAIN_STEPS} steps after one warm-up ("
@@ -692,6 +729,141 @@ def train_phase(smi: str, tmp: str) -> dict:
           f"2 epochs x {TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(
               f"{x:.3f}" for x in it_s) + f"), resume 1 epoch {resume_s:.1f} s, run -t network "
           f"from the trained checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
+    return ret
+
+
+def train_relight_phase(smi: str, tmp: str, geometry: str) -> dict:
+    """The [train-relight] phase (see the module docstring) on the tree
+    [cli] left in ``tmp``, with [train]'s stage-1 checkpoint ``geometry``.
+    Returns the timed steps' KNN launches and the kernel's times on the
+    step's first full shadow block, with its bound and largest |d2|
+    difference from the plain version."""
+    t0 = time.perf_counter()
+    ret = {}
+    # (a) the reference stage-2 step, bf16
+    cfg = train_check.relight_step_cfg(bf16=True, record_dir=os.path.join(tmp, "relight_rec"))
+    trainer, batch = train_check.make_step(cfg, "cuda", train_check.RELIGHT_R)
+    inputs: dict = {}
+    with record_knn_inputs(inputs, sizes=(SHADOW_P,), tail=False):
+        trainer.step(batch, 0)                                  # warm-up
+    torch.cuda.synchronize()
+    check(SHADOW_P in inputs, f"the step traced no full shadow block of {SHADOW_P} rays")
+    torch.cuda.reset_peak_memory_stats()
+    secs, tflops, shadow = [], [], []
+    knn_cuda.KNN_TOP3.launches = 0
+    for _ in range(RELIGHT_STEPS):
+        t1 = time.perf_counter()
+        stats = trainer.step(batch, 0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        tflops.append(trainer.step_flops(batch) / 1e12)
+        shadow.append(trainer.shadow_rays)
+    ret["launches"] = knn_cuda.KNN_TOP3.launches
+    check(ret["launches"] > 0, "the stage-2 step did not launch the KNN kernel")
+    per_step = ret["launches"] / RELIGHT_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(stats.loss)
+    check(math.isfinite(loss), f"the timed stage-2 step's loss is {loss}")
+    step_s = statistics.median(secs)
+    tflop = statistics.mean(tflops)
+    p, vv = inputs[SHADOW_P]
+    d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+    d2r, ir = knn_top3_reference(p, vv)
+    ret["max_err"] = max_abs_diff(d2k, d2r)
+    check_knn_equal(f"stage-2 step shadow block P={p.shape[0]}", p, vv, d2k, ik, d2r, ir)
+    ret["ms"] = time_in_turns({"kernel": lambda: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    ret["plain_ms"], ret["library_ms"] = yardstick_ms(p, vv)
+    ret["bound_ms"] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
+    del trainer, batch, inputs, p, vv
+    torch.cuda.empty_cache()
+
+    # (b) the small step on the card against the CPU, the same jitter:
+    # float32, then bf16 with the residual MLP's last layer re-drawn
+    held, flips = {}, None
+    for bf16 in (False, True):
+        res, hits = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg_c = train_check.relight_step_cfg(bf16=bf16, record_dir=os.path.join(tmp, "rcheck"))
+            tr, bt, jitter = train_check.make_relight_check(cfg_c, dev)
+            if bf16:
+                train_check.live_residual(tr)
+            else:
+                hits[dev] = train_check.ray_hits(tr, bt).cpu()
+            res[dev] = train_check.step_result(tr, bt, jitter)
+        cmp = {k: v for k, v in train_check.compare_grads(res["cuda"], res["cpu"]).items()
+               if not k.startswith("rgb/")}        # the stage-1 render MLP, unused here
+        nets = train_check.compare_nets(res["cuda"], res["cpu"])
+        loss_rel = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(res["cpu"]["loss"])
+        worst_rel = max(v[0] for v in cmp.values())
+        worst_cos = min(v[1] for k, v in cmp.items() if not k.endswith(("/b", "beta"))
+                        and (bf16 or v[2] > 0))
+        if bf16:
+            dead = [k for k, v in cmp.items() if v[2] == 0 and not k.endswith(("/b", "beta"))]
+            check(not dead, f"stage-2 bf16 step on the card: weights without a gradient: {dead}")
+            worst_k = min((v[1], k) for k, v in cmp.items() if not k.endswith(("/b", "beta")))
+            check(worst_cos >= RELIGHT_BF16_COS and min(nets.values()) >= RELIGHT_BF16_NET_COS,
+                  f"stage-2 bf16 step on the card: worst weight {worst_k}, sub-networks {nets} "
+                  f"(bars {RELIGHT_BF16_COS}, {RELIGHT_BF16_NET_COS}) to the CPU's")
+        else:
+            flips = int((hits["cuda"] != hits["cpu"]).sum())
+            n_hit = int(hits["cpu"].sum())
+            check(loss_rel <= RELIGHT_LOSS_REL, f"stage-2 f32 step card vs CPU loss: "
+                  f"{loss_rel:.3e} ({flips} rays' hits differ)")
+            bad = {k: v[0] for k, v in cmp.items() if v[0] > RELIGHT_GRAD_REL}
+            check(not bad, f"stage-2 f32 step card vs CPU gradients beyond {RELIGHT_GRAD_REL}: "
+                  f"{bad} ({flips} rays' hits differ)")
+        held["bf16" if bf16 else "f32"] = (loss_rel, worst_rel, worst_cos, min(nets.values()))
+    t_check = time.perf_counter()
+
+    # (c) the CLI: stage 2 from [train]'s geometry, train, resume, render
+    data = os.path.join(tmp, "tubeman")
+    common = ["-c", CLI_CFG, "relighting", "True", "geometry_pretrain", geometry,
+              "exp_name", "tubeman_verify", "trained_model_dir",
+              os.path.join(tmp, "trained_train"), "record_dir", os.path.join(tmp, "record"),
+              "result_dir", os.path.join(tmp, "res"), "train_dataset.data_root", data,
+              "test_dataset.data_root", data, "ep_iter", str(TRAIN_CLI_ITERS),
+              "train.num_workers", "2", "eval_ep", "100", "save_ep", "100"]
+    log_t, train_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "False",
+                              "train.epoch", "2"], timeout=CLI_TIMEOUT)
+    check("loaded geometry pretrain" in log_t, "stage 2 did not load the stage-1 geometry")
+    cfg_t, _ = setup(common)
+    mdir = cfg_t.trained_model_dir
+    check(mdir.endswith(os.path.join("relight", "tubeman_verify")), f"stage 2 saved to {mdir}")
+    check(sorted(os.listdir(mdir)) == ["1.npz", "2.npz", "latest.npz"],
+          f"stage-2 train wrote {sorted(os.listdir(mdir))}")
+    rows = [json.loads(line) for line in open(os.path.join(cfg_t.record_dir, "scalars.jsonl"))]
+    check(len(rows) == 2 * TRAIN_CLI_ITERS and all(math.isfinite(r["loss"]) for r in rows),
+          f"stage-2 train's recorded losses: {[r.get('loss') for r in rows]}")
+    it_s = [float(m) for m in re.findall(r"([\d.]+)s/it", log_t)]
+    log_r, resume_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "True",
+                               "train.epoch", "3"], timeout=CLI_TIMEOUT)
+    with np.load(os.path.join(mdir, "latest.npz")) as f:
+        check(int(f["epoch"]) == 3, f"stage-2 resume saved epoch {int(f['epoch'])}, not 3")
+        check("net:albedo/layers/0/w" in f.files and "net:env" in f.files,
+              "the stage-2 checkpoint lacks the relight heads or the envmap")
+    log_n, net_s = run_cli(["relightableavatar_tpu_torch.run", "-t", "network", *common,
+                            "num_eval_frame", str(CLI_FRAMES), "test.frame_sampler_interval", "1"])
+    m = re.search(r"mean render time: ([\d.]+)s", log_n)
+    check(m is not None, "run -t network from the stage-2 checkpoint printed no render time")
+    fmt = lambda t: ", ".join(f"{x:.3e}" for x in t)
+    losses = ", ".join(f"{r['loss']:.5f}" for r in rows)
+    phase("train-relight", t0, f"reference stage-2 step B={train_check.RELIGHT_B} "
+          f"R={train_check.RELIGHT_R}, bf16, fixture parameters ({smi}): median "
+          f"{step_s * 1e3:.1f} ms of {RELIGHT_STEPS} steps after one warm-up ("
+          + ", ".join(f"{x * 1e3:.1f}" for x in secs) + f" ms), {tflop:.3f} TFLOP a step "
+          f"(analytic, {statistics.mean(shadow):.0f} shadow rays) = {tflop / step_s:.2f} "
+          f"TFLOP/s, peak memory {peak:.2f} GiB, loss {loss:.5f}; K1 launches a step "
+          f"{per_step:.1f}; on the step's shadow block P={SHADOW_P} kernel {ret['ms']:.4f} / "
+          f"plain {ret['plain_ms']:.4f} / cdist+topk {ret['library_ms']:.4f} ms, bound "
+          f"{ret['bound_ms']:.4f} ms, equal to the plain version; card vs CPU at "
+          f"B={train_check.RELIGHT_B} R={train_check.RELIGHT_CHECK_R} ({t_check - t0:.1f} s in "
+          f"all): f32 loss rel, worst grad rel, worst weight cosine, worst sub-network "
+          f"cosine {fmt(held['f32'])}, rays "
+          f"whose hit differs {flips} of {2 * train_check.RELIGHT_CHECK_R} ({n_hit} hit on "
+          f"the CPU); bf16 {fmt(held['bf16'])}; CLI stage-2 train 2 epochs x "
+          f"{TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(f"{x:.3f}" for x in it_s)
+          + f"; losses {losses}), resume 1 epoch {resume_s:.1f} s, run -t network relighting "
+          f"True from the stage-2 checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
     return ret
 
 
@@ -1108,7 +1280,9 @@ def main() -> None:
         mesh = mesh_phase(smi, tmp)
         torch.cuda.empty_cache()
         train = train_phase(smi, tmp)
-    max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"])
+        torch.cuda.empty_cache()
+        relight = train_relight_phase(smi, tmp, train["model_dir"])
+    max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"], relight["max_err"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1125,6 +1299,7 @@ def main() -> None:
         "launches_cli": launches_cli,
         "launches_mesh": mesh["launches"],
         "launches_train": train["launches"],
+        "launches_train_relight": relight["launches"],
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -1145,10 +1320,18 @@ def main() -> None:
         "mesh_input_plain_ms": mesh["plain_ms"],
         "mesh_input_library_ms": mesh["library_ms"],
         "mesh_input_bound_ms": mesh["bound_ms"],
+        "mesh_prior_input_ms": mesh["prior"]["ms"],
+        "mesh_prior_input_plain_ms": mesh["prior"]["plain_ms"],
+        "mesh_prior_input_library_ms": mesh["prior"]["library_ms"],
+        "mesh_prior_input_bound_ms": mesh["prior"]["bound_ms"],
         "train_input_ms": train["ms"],
         "train_input_plain_ms": train["plain_ms"],
         "train_input_library_ms": train["library_ms"],
         "train_input_bound_ms": train["bound_ms"],
+        "train_relight_input_ms": relight["ms"],
+        "train_relight_input_plain_ms": relight["plain_ms"],
+        "train_relight_input_library_ms": relight["library_ms"],
+        "train_relight_input_bound_ms": relight["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -12,8 +12,10 @@ without the miss skip, 8 lights re-shaded); ``volume`` and ``volume_cull32``,
 ``novel_view_512`` and ``novel_view_512_cull32``
 (``golden.volume_frame_cfg()``: the stage-1 network, 128 samples a ray);
 ``train``, bench.py's reference stage-1 train step (``eval/train_check.py``:
-4 frames x 1024 rays x 128 samples, bf16, the fixture's parameters), one
-step standing for a frame.  Each is rendered once to warm up; then ``REPS`` timed frames of each in
+4 frames x 1024 rays x 128 samples, bf16, the fixture's parameters), and
+``train_relight``, the reference stage-2 step (``train_check.relight_step_cfg``:
+2 frames x 1024 rays, 16 surface and 4 shadow iterations, 16 x 32 light
+texels, bf16), one step standing for a frame.  Each is rendered once to warm up; then ``REPS`` timed frames of each in
 turns (forward, then backward, ...); then one frame of each with a device
 sync after every stage (bake, sweep, miss march, ray blocks, assembly; the
 sweep's base pass and re-shade; the volume's cull bake and blocks); then
@@ -133,11 +135,13 @@ def _report(name, renderer, batch, n_rays, walls) -> None:
 
 
 class TrainStep:
-    """bench.py's reference train step behind the renderers' interface:
-    ``render(batch)`` takes one optimiser step on ``batch``."""
+    """A reference train step (stage 1, or stage 2 where ``cfg.relighting``)
+    behind the renderers' interface: ``render(batch)`` takes one optimiser
+    step on ``batch``."""
 
-    def __init__(self, cfg, params=None, mcfg=None, device="cuda"):
-        self.trainer, self.batch = train_check.make_step(cfg, device, train_check.BENCH_R)
+    def __init__(self, cfg, device="cuda"):
+        self.R = train_check.RELIGHT_R if cfg.relighting else train_check.BENCH_R
+        self.trainer, self.batch = train_check.make_step(cfg, device, self.R)
         self.time_stages = False
         self.last_frame = {}
 
@@ -155,7 +159,8 @@ FRAMES = (("exact", golden.frame_cfg, SphereTracingRenderer),
           ("sweep", golden.sweep_frame_cfg, NovelLightRenderer),
           ("volume", golden.volume_frame_cfg, VolumeRenderer),
           ("volume_cull32", lambda: golden.volume_frame_cfg(32), VolumeRenderer),
-          ("train", _train_cfg, TrainStep))
+          ("train", _train_cfg, TrainStep),
+          ("train_relight", lambda: train_check.relight_step_cfg(bf16=True), TrainStep))
 
 
 def main() -> None:
@@ -173,7 +178,7 @@ def main() -> None:
         cfg = cfg()
         if cls is TrainStep:
             renderer = TrainStep(cfg)
-            batch, n_rays = renderer.batch, train_check.BENCH_B * train_check.BENCH_R
+            batch, n_rays = renderer.batch, int(cfg.train.batch_size) * renderer.R
         else:
             ctx, params, mcfg = golden.load_fixture(cfg, device="cuda")
             renderer = cls(cfg, params, mcfg, device="cuda")

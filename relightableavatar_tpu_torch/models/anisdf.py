@@ -401,32 +401,36 @@ def forward_geometry(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
 
 
 def forward(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
-            v: torch.Tensor, training: bool = False) -> dotdict:
+            v: torch.Tensor, training: bool = False,
+            jitter_noise: torch.Tensor | None = None) -> dotdict:
     """Network forward (base_network.py:496-515 / relight_network.py:91-120).
     Inference (under no_grad): ret.raw (P, C) = [cpts, bpts, resd, albedo,
     rough, norm, occ] (relight) or [cpts, bpts, resd, norm, rgb, occ], zero
-    outside the band.  ``training`` (stage 1): ret.raw = [norm, rgb, occ]
-    with the graph to the parameters, beside :func:`forward_geometry`'s
-    training terms; the relight training outputs are ROADMAP item 10b."""
-    if training:
-        if mcfg.relight:
-            raise NotImplementedError(
-                "the relight network's training outputs (albedo, roughness and their "
-                "jittered pair) are not ported yet (ROADMAP item 10b)")
-        ret, out = forward_geometry(params, mcfg, ctx, x, v, training=True)
-        rgb = render_rgb(params, mcfg, out.bvds, out.norm, out.feat, out.cond)
-        raw = torch.cat([out.norm, rgb, out.occ], dim=-1)
-        ret.raw = raw * out.mask[:, None]
-        ret.mask = out.mask
-        return ret
-    with torch.no_grad():
-        _, out = forward_geometry(params, mcfg, ctx, x, v)
+    outside the band.  ``training``: ret.raw = [albedo, rough, norm, occ]
+    (relight) or [norm, rgb, occ] with the graph to the parameters, beside
+    :func:`forward_geometry`'s training terms; the relight network adds the
+    unmasked ``albedo`` and ``roughness`` and, given ``jitter_noise`` (P, 3)
+    (the caller's N(0, 0.02) draw), the smoothness pair ``albedo_jitter``
+    and ``roughness_jitter`` of the heads at ``cpts + jitter_noise``
+    (relight_network.py:107-118)."""
+    with torch.set_grad_enabled(training):
+        ret, out = forward_geometry(params, mcfg, ctx, x, v, training=training)
         if mcfg.relight:
             albedo = albedo_head(params, mcfg, out.feat)
             rough = roughness_head(params, mcfg, out.feat)
             raw = torch.cat([albedo, rough, out.norm, out.occ], dim=-1)
+            if training:
+                ret.albedo = albedo
+                ret.roughness = rough
+                if jitter_noise is not None:
+                    _, feat_j = sdf_feat(params, mcfg, out.cpts + jitter_noise)
+                    ret.albedo_jitter = albedo_head(params, mcfg, feat_j)
+                    ret.roughness_jitter = roughness_head(params, mcfg, feat_j)
         else:
             rgb = render_rgb(params, mcfg, out.bvds, out.norm, out.feat, out.cond)
             raw = torch.cat([out.norm, rgb, out.occ], dim=-1)
-        raw = torch.cat([out.cpts, out.bpts, out.resd, raw], dim=-1)
-        return dotdict(raw=raw * out.mask[:, None], mask=out.mask)
+        if not training:
+            raw = torch.cat([out.cpts, out.bpts, out.resd, raw], dim=-1)
+        ret.raw = raw * out.mask[:, None]
+        ret.mask = out.mask
+        return ret

@@ -7,7 +7,8 @@ DFSS shadow rays toward every light texel -> GGX shading -> sRGB.
 Inference, on the exact path or with the acceleration stack: shadow rays
 on a baked SDF grid (``tpu.shadow_grid``), the slice-sweep visibility
 volume (``tpu.lvis_sweep``) and the camera trace's exact miss skip
-(``tpu.surf_miss_skip``).  The options not ported raise in
+(``tpu.surf_miss_skip``); and the stage-2 training render, with the graph
+to the parameters.  The options not ported raise in
 :meth:`RelightRenderConfig.from_cfg`.
 """
 from __future__ import annotations
@@ -156,7 +157,7 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
     P = surf.shape[0]
     L = xyz.shape[0]
 
-    ray_d_l = normalize(xyz)
+    ray_d_l = normalize(xyz).to(norm.dtype)       # a float32 grid promotes, as in JAX
     ldot = norm @ ray_d_l.T                                   # (P, L)
     if rcfg.no_visibility:
         return torch.ones_like(ldot), ldot
@@ -198,23 +199,44 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
 
 
 # ---------------------------------------------------------------- main pass
-@torch.no_grad()
 def render_human_block(params, mcfg: AniSDFConfig, ctx,
                        ray_o, ray_d, near, far,             # (P,3) (P,3) (P,) (P,)
                        envmap_probe,                         # (eH, eW, 3)
                        light_xyz, light_area, light_sharp,   # (eH,eW,3),(eH,eW),(eH,eW)
                        st_surf: STConfig, st_obj: STConfig,
                        rcfg: RelightRenderConfig, shadow_sdf_grid=None,
-                       lvis_volume=None) -> dotdict:
-    """One pixel block of render_human (sphere_tracing_renderer.py:551-784),
-    inference branch.
+                       lvis_volume=None, training: bool = False,
+                       jitter_noise: torch.Tensor | None = None,
+                       stats: dict | None = None) -> dotdict:
+    """One pixel block of render_human (sphere_tracing_renderer.py:551-784).
 
     With ``rcfg.shadow_grid`` the shadow rays march ``shadow_sdf_grid`` (the
     frame's baked grid over the body box padded by ``rcfg.grid_margin``,
     raw or packed), or a cubic grid baked here when none is passed; with
     ``rcfg.surf_miss_skip`` the camera trace skips the proven misses on its
     lower bound; with ``rcfg.lvis_sweep`` and a ``lvis_volume`` the
-    visibility is one lookup of that volume."""
+    visibility is one lookup of that volume.
+
+    Inference runs without a graph.  ``training`` keeps the graph to the
+    parameters, as the JAX package's training branch does: the surface
+    trace, the grid bake and the visibility stay off it (the miss skip is
+    not taken); one HDQ re-query of the edge and closest points gives the
+    differentiable ``acc_map``, ``edge_sdf`` and ``closest_sdf``; the band
+    forward runs in training with ``jitter_noise`` (P * n_samples, 3) for
+    the smoothness pair; the outputs are ``rgb_map``, ``acc_map`` and the
+    loss terms (``reg_mask``, ``residuals``, the gradients, ``albedo``,
+    ``roughness``, their jittered pair and ``volume_albedo``), with no
+    background masking.  ``stats['shadow_rays']``, when given, adds the
+    number of shadow rays traced."""
+    with torch.set_grad_enabled(training):
+        return _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe,
+                            light_xyz, light_area, light_sharp, st_surf, st_obj, rcfg,
+                            shadow_sdf_grid, lvis_volume, training, jitter_noise, stats)
+
+
+def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light_xyz,
+                 light_area, light_sharp, st_surf, st_obj, rcfg, shadow_sdf_grid,
+                 lvis_volume, training, jitter_noise, stats) -> dotdict:
     P = ray_o.shape[0]
     dev, dt = ray_o.device, ray_o.dtype
     near_c = near.reshape(P, 1)
@@ -231,12 +253,13 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
         if grid is None:
             hdq = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True,
                                            dist_th=st_obj.dist_th)
-            grid = build_sdf_grid(hdq, gbox[0], gbox[1], rcfg.shadow_grid)
+            with torch.no_grad():
+                grid = build_sdf_grid(hdq, gbox[0], gbox[1], rcfg.shadow_grid)
         shadow_sdf = lambda x: grid_sdf(grid, gbox[0], gbox[1], x)
         lower_bound_sdf = lambda x: grid_sdf_lower_bound(grid, gbox[0], gbox[1], x)
 
-    # ---- surface intersection
-    if rcfg.surf_miss_skip and lower_bound_sdf is not None:
+    # ---- surface intersection (the tracer runs without a graph)
+    if rcfg.surf_miss_skip and lower_bound_sdf is not None and not training:
         surf, edge, occ, st_t, ot_t = sphere_trace_miss_skip(
             surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c, far_c, st_surf,
             skip_iter=rcfg.surf_skip_iters, margin=rcfg.surf_skip_margin)
@@ -245,6 +268,14 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
                                                    far_c, st_surf, soft_shadow=False)
     depth = (surf[:, 0] - ray_o[:, 0]) / ray_d[:, 0]
     acc = 1.0 - occ[:, 0]
+    if training:
+        # differentiable acc from the edge SDF (reference :593-598); the
+        # closest-approach point rides the same query for the silhouette loss
+        dd = surf_sdf(torch.cat([edge, surf], dim=0))
+        d, d_cl = dd[:P], dd[P:]
+        acc_g = 1.0 - torch.clamp(d, min=0.0) / torch.clamp(
+            torch.maximum(ot_t, near_c), min=st_surf.eps) / (1 / st_surf.tan_i * 2)
+        acc = torch.clamp(acc_g[:, 0], 0.0, 1.0)
     hit = acc > 0
 
     if rcfg.check_bound_sdf:
@@ -254,8 +285,9 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
                        rgb_map=_debug_colormap(torch.abs(d[:, 0]) * 2.0))
 
     if rcfg.check_termination_sdf:
-        # |sdf| at hit points (reference :765-778)
-        d_term = surf_sdf(surf)
+        # |sdf| at hit points (reference :765-778), of the network itself
+        d_term = anisdf.hdq_sdf(params, mcfg._replace(smpl_distance=False), ctx, surf,
+                                smooth_transition=True)
         w = hit.to(d_term.dtype)
         term_sdf_sum = torch.sum(torch.abs(d_term[:, 0]) * w).reshape(1)
         term_sdf_cnt = torch.sum(w).reshape(1)
@@ -271,7 +303,8 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
     net_view = ray_d[:, None, :].expand(P, S, 3)
 
     ret = anisdf.forward(params, mcfg, ctx, net_pts.reshape(P * S, 3),
-                         net_view.reshape(P * S, 3))
+                         net_view.reshape(P * S, 3), training=training,
+                         jitter_noise=jitter_noise if training else None)
     raw = ret.raw.reshape(P, S, -1)
     raw, occ_s = raw[..., :-1], raw[..., -1]
     _, raw, occ_v = volume_rendering(raw, occ_s, bg_brightness=rcfg.bg_brightness)
@@ -279,16 +312,29 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
 
     out = dotdict()
     out.acc_map = acc
-    out.surf_map = surf * hit[:, None]
-    out.depth_map = depth * hit
+    if training:
+        out.edge_sdf = d[:, 0]
+        out.closest_sdf = d_cl[:, 0]
+        for key in ('reg_mask', 'residuals', 'observed_gradients', 'gradients', 'albedo',
+                    'roughness', 'albedo_jitter', 'roughness_jitter'):
+            if key in ret:
+                out[key] = ret[key]
+    else:
+        out.surf_map = surf * hit[:, None]
+        out.depth_map = depth * hit
 
     # channel conventions (reference :632-639)
     C = raw.shape[-1]
-    rgb = albedo = roughness = None
-    cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
-    if C == 3 + 3 + 3 + 3 + 1 + 3:      # relight: cpts bpts resd albedo rough norm
+    rgb = albedo = roughness = cpts = None
+    if C == 3 + 1 + 3:                  # relight training: albedo rough norm
+        albedo, roughness, norm = raw[..., :3], raw[..., 3:4], raw[..., 4:7]
+    elif C == 3 + 3:                    # anisdf training: norm rgb
+        norm, rgb = raw[..., :3], raw[..., 3:6]
+    elif C == 3 + 3 + 3 + 3 + 1 + 3:    # relight: cpts bpts resd albedo rough norm
+        cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
         albedo, roughness, norm = raw[..., 9:12], raw[..., 12:13], raw[..., 13:16]
     elif C == 3 + 3 + 3 + 3 + 3:        # anisdf: cpts bpts resd norm rgb
+        cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
         norm, rgb = raw[..., 9:12], raw[..., 12:15]
     else:
         raise NotImplementedError(f"raw channels {C}")
@@ -301,14 +347,18 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
         albedo = torch.clamp(albedo, mcfg.albedo_bias, mcfg.albedo_bias + mcfg.albedo_slope)
         roughness = torch.clamp(roughness, mcfg.roughness_bias,
                                 mcfg.roughness_bias + mcfg.roughness_slope)
+        if training:
+            out.volume_albedo = albedo
 
-    out.norm_map = norm * hit[:, None]
-    if albedo is not None:
-        out.albedo_map = albedo * hit[:, None]
-        out.roughness_map = roughness[..., 0] * hit
-    out.cpts_map = cpts * hit[:, None]
-    out.bpts_map = bpts * hit[:, None]
-    out.resd_map = resd * hit[:, None]
+    if not training:
+        out.norm_map = norm * hit[:, None]
+        if albedo is not None:
+            out.albedo_map = albedo * hit[:, None]
+            out.roughness_map = roughness[..., 0] * hit
+        if cpts is not None:
+            out.cpts_map = cpts * hit[:, None]
+            out.bpts_map = bpts * hit[:, None]
+            out.resd_map = resd * hit[:, None]
 
     # ---- relight shading (reference :707-760)
     if rcfg.relighting and albedo is not None:
@@ -343,16 +393,16 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
             else:
                 tan_iv = st_obj.tan_i_multiplier * sharp_v
             occ_v = torch.clamp(r_vol * (tan_iv[None, :] * 0.5), 0.0, 1.0)
-            ldot = norm @ normalize(xyz_v).T
-            lvis = occ_v * ((ldot > 0) & (acc[:, None] > 0))
+            ldot = norm @ normalize(xyz_v).to(norm.dtype).T
+            lvis = (occ_v * ((ldot > 0) & (acc[:, None] > 0))).detach()
         else:
             lvis, ldot = light_visibility(
                 params, mcfg, ctx, surf, norm, acc, xyz_v, sharp_v,
                 gbox if shadow_sdf is not None else bbox, st_obj, rcfg,
-                soft_shadow=not rcfg.no_dfss, sdf_override=shadow_sdf)
+                soft_shadow=not rcfg.no_dfss, sdf_override=shadow_sdf, stats=stats)
         if U is not None:
-            lvis = torch.clamp(lvis @ U, 0.0, 1.0)
-            ldot = norm @ normalize(xyz).T
+            lvis = torch.clamp(lvis @ U.to(lvis.dtype), 0.0, 1.0)
+            ldot = norm @ normalize(xyz).to(norm.dtype).T
             ldot_mask = (ldot > 0) & (acc[:, None] > 0)
             lvis = lvis * ldot_mask
 
@@ -382,33 +432,35 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
             rgb = linear2srgb(rgb)
         out.rgb_map = rgb
 
-        if rcfg.want_spec_map:
-            spec_brdf = microfacet_brdf(
-                surf2light, surf2cam, norm, torch.zeros_like(albedo), roughness,
-                f0=rcfg.fresnel_f0, cancel_cosine=rcfg.cancel_cosine)
-            if rcfg.cancel_cosine:
-                spec_ldot = 1 / (torch.abs(ldot) + 1e-8)
-            else:
-                spec_ldot = torch.ones_like(ldot)
-            spec_shade = evaluate_shade(torch.ones_like(lvis), spec_ldot, area, light)
-            out.spec_map = torch.sum(spec_brdf * spec_shade, dim=-2)
+        if not training:
+            if rcfg.want_spec_map:
+                spec_brdf = microfacet_brdf(
+                    surf2light, surf2cam, norm, torch.zeros_like(albedo), roughness,
+                    f0=rcfg.fresnel_f0, cancel_cosine=rcfg.cancel_cosine)
+                if rcfg.cancel_cosine:
+                    spec_ldot = 1 / (torch.abs(ldot) + 1e-8)
+                else:
+                    spec_ldot = torch.ones_like(ldot)
+                spec_shade = evaluate_shade(torch.ones_like(lvis), spec_ldot, area, light)
+                out.spec_map = torch.sum(spec_brdf * spec_shade, dim=-2)
 
-        shade_vis = evaluate_shade(lvis, ldot, area, light)
-        out.shade_map = torch.sum(shade_vis, dim=-2) * rcfg.shading_albedo / np.pi
-        if rcfg.vis_lvis_map:
-            out.shade_map = torch.mean(lvis, dim=-1, keepdim=True).expand(P, 3)
-        if rcfg.vis_ldot_map:
-            out.shade_map = torch.mean(ldot, dim=-1, keepdim=True).expand(P, 3)
-        if rcfg.want_light_maps:
-            out.lvis_map = lvis
-            out.ldot_map = ldot
+            shade_vis = evaluate_shade(lvis, ldot, area, light)
+            out.shade_map = torch.sum(shade_vis, dim=-2) * rcfg.shading_albedo / np.pi
+            if rcfg.vis_lvis_map:
+                out.shade_map = torch.mean(lvis, dim=-1, keepdim=True).expand(P, 3)
+            if rcfg.vis_ldot_map:
+                out.shade_map = torch.mean(ldot, dim=-1, keepdim=True).expand(P, 3)
+            if rcfg.want_light_maps:
+                out.lvis_map = lvis
+                out.ldot_map = ldot
     else:
         out.rgb_map = rgb if rgb is not None else torch.zeros((P, 3), dtype=dt, device=dev)
 
     # background masking like the reference alpha_output_ (:453-460)
-    for key in ('rgb_map', 'spec_map', 'shade_map'):
-        if key in out:
-            out[key] = out[key] * acc[:, None]
+    if not training:
+        for key in ('rgb_map', 'spec_map', 'shade_map'):
+            if key in out:
+                out[key] = out[key] * acc[:, None]
     if rcfg.check_termination_sdf:
         out.term_sdf_sum = term_sdf_sum
         out.term_sdf_cnt = term_sdf_cnt

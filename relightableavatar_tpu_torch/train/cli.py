@@ -8,8 +8,10 @@ The epoch loop with its save and eval cadences and the checkpoint resume.
 ``init_anisdf``); ``dry_run`` stops after building the network;
 ``detect_anomaly`` turns on ``torch.autograd.set_detect_anomaly``.
 ``main`` runs on the card; :func:`train` and :func:`test` take ``device``
-(the tests pass "cpu").  Stage 2 (``relighting True``) is ROADMAP item 10b
-and raises.
+(the tests pass "cpu").  With ``relighting True`` (stage 2) the network
+takes its geometry from ``geometry_pretrain`` (a stage-1 checkpoint) and the
+relight heads and the envmap from ``init_anisdf``, and the checkpoints go
+under ``relight/<exp_name>/``.
 """
 from __future__ import annotations
 
@@ -24,9 +26,6 @@ def train(cfg, device="cuda"):
     from relightableavatar_tpu_torch.train.trainer import Trainer
     from relightableavatar_tpu_torch.utils.log import log
 
-    if cfg.relighting or 'relight' in cfg.network_module:
-        raise NotImplementedError(
-            "training the relight stage is not ported yet (ROADMAP item 10b)")
     if not cfg.resume and os.path.exists(cfg.trained_model_dir):
         # before make_network, which would start from the folder's latest
         shutil.rmtree(cfg.trained_model_dir)
@@ -79,6 +78,7 @@ def train(cfg, device="cuda"):
                 trainer.val(test_loader, make_evaluator(cfg))
             except Exception as e:  # eval must not stop training (train.py:77-82)
                 log(f'eval failed: {e}', 'red')
+    trainer.profiler.close()
     trainer.recorder.close()
     return trainer
 

@@ -1,19 +1,21 @@
-"""Stage-1 trainer (``relightableavatar_tpu/train/trainer.py``; reference
-``lib/train/trainers/trainer.py``): the volume train step, the recorder
-(smoothed scalars, ``scalars.jsonl``, TensorBoard events) and the epoch loop.
+"""The trainer (``relightableavatar_tpu/train/trainer.py``; reference
+``lib/train/trainers/trainer.py``): the stage-1 volume and the stage-2
+(``cfg.relighting``) sphere-traced train steps, the recorder (smoothed
+scalars, ``scalars.jsonl``, TensorBoard events), the ``cfg.profiling``
+traces and the epoch loop.
 
 One step: for each ray chunk (``tpu.grad_sample_budget``, the JAX package's
 halving rule) and each frame of the batch, the frame's training render and
 losses, back-propagated with weight 1 / (B NC), so the summed gradients are
 the mean of the per-frame losses averaged over the chunks, as the JAX step's
 ``vmap`` mean and ``scan`` sum over NC give; then clipping and the
-optimiser's update.  Stratified sampling draws one (B, R, S) block from the
-trainer's generator a step and slices it per chunk, so chunking changes no
-draw.
+optimiser's update.  The random draws of a step, the stratified samples
+(B, R, S) of stage 1 and the jitter of the relight smoothness pair
+(B, R, S, 3) of stage 2, come as one block from the trainer's generator and
+are sliced per chunk, so chunking changes no draw.
 
-The relight step (``cfg.relighting``) and ``cfg.profiling`` traces are
-ROADMAP item 10b and raise.  ``tpu.donate`` has no meaning here (the
-update is in place) and is a logged no-op.
+``tpu.donate`` has no meaning here (the update is in place) and is a
+logged no-op.
 """
 from __future__ import annotations
 
@@ -27,16 +29,23 @@ import numpy as np
 import torch
 
 from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+from relightableavatar_tpu_torch.ops.envmap import gen_light_xyz
+from relightableavatar_tpu_torch.renderer.sphere_tracing import (RelightRenderConfig,
+                                                                 render_human_block)
+from relightableavatar_tpu_torch.renderer.tracing import STConfig
 from relightableavatar_tpu_torch.renderer.volume import train_block
 from relightableavatar_tpu_torch.train.checkpoints import named_params
 from relightableavatar_tpu_torch.train.loss import anisdf_losses, loss_weights_from_cfg
 from relightableavatar_tpu_torch.train.optimizer import TrainOptimizer, make_lr_schedule
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
-from relightableavatar_tpu_torch.utils.flops import train_step_flops
+from relightableavatar_tpu_torch.utils.flops import relight_step_flops, train_step_flops
 from relightableavatar_tpu_torch.utils.log import log
+from relightableavatar_tpu_torch.utils.profiling import Profiler
 
 RAY_KEYS = ('ray_o', 'ray_d', 'near', 'far', 'rgb', 'msk', 'norm', 'sem')
+XYZ_NOISE_STD = 0.02    # the relight smoothness pair's jitter (relight_network.py:107-118)
 
 
 # ------------------------------------------------------------------ recorder
@@ -151,12 +160,6 @@ class Trainer:
     the recorder and the loop (reference Trainer.train / val)."""
 
     def __init__(self, cfg, params: dict, mcfg: AniSDFConfig, device="cuda"):
-        if cfg.relighting:
-            raise NotImplementedError(
-                "the relight (stage-2) train step is not ported yet (ROADMAP item 10b)")
-        if cfg.profiling.enabled:
-            raise NotImplementedError(
-                "cfg.profiling traces of the train step are not ported yet (ROADMAP item 10b)")
         if cfg.tpu.donate:
             log('tpu.donate: no-op in torch (the step updates the parameters in place)')
         self.cfg = cfg
@@ -172,22 +175,38 @@ class Trainer:
         self.weights = loss_weights_from_cfg(cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.get('seed', 42)))
-        self._step_flops = None
         self._warned_sem = False
+        self.profiler = Profiler(cfg)
+        self.relight = bool(cfg.relighting)
+        if self.relight:
+            self.rcfg = RelightRenderConfig.from_cfg(cfg)._replace(want_spec_map=False)
+            self.st_surf = STConfig.from_cfg(cfg.sphere_tracing, clay_book=not cfg.no_claybook)
+            self.st_obj = STConfig.from_cfg({**dict(cfg.sphere_tracing), **dict(cfg.obj_lvis)},
+                                            clay_book=not cfg.no_claybook)
+            lx, la = gen_light_xyz(mcfg.env_h, mcfg.env_w, mcfg.env_r, device=self.device)
+            self.lights = (lx, la, 1.0 / torch.sqrt(la / np.pi))
+            self.shadow_rays = 0     # traced by the last step
 
     # ------------------------------------------------------- the step
-    def step(self, batch: dotdict, iter_step: int) -> dotdict:
+    def step(self, batch: dotdict, iter_step: int,
+             jitter_noise: torch.Tensor | None = None) -> dotdict:
         """One optimiser step on a collated batch; returns the step's stats
         (scalar tensors on the device: the mean over frames, averaged over
-        chunks)."""
+        chunks).  The relight step's jitter (B, R, S, 3) is drawn from the
+        generator, N(0, XYZ_NOISE_STD), unless ``jitter_noise`` gives it."""
         cfg = self.cfg
         S = int(cfg.n_samples)
-        bg = float(cfg.bg_brightness)
         B, R = batch.rgb.shape[:2]
         RC, NC = ray_chunks(B, R, S, int(cfg.tpu.grad_sample_budget))
-        t_rand = None
-        if cfg.perturb > 0:
-            t_rand = torch.rand((B, R, S), generator=self.generator, device=self.device)
+        rand = None
+        if self.relight:
+            rand = jitter_noise
+            if rand is None:
+                rand = torch.randn((B, R, S, 3), generator=self.generator,
+                                   device=self.device) * XYZ_NOISE_STD
+            self.shadow_rays = 0
+        elif cfg.perturb > 0:
+            rand = torch.rand((B, R, S), generator=self.generator, device=self.device)
         for _, t in self.named:
             t.grad = None
         keys = [k for k in RAY_KEYS if k in batch]
@@ -196,15 +215,47 @@ class Trainer:
             sl = slice(c * RC, (c + 1) * RC)
             for b in range(B):
                 rays = dotdict({k: batch[k][b, sl] for k in keys})
-                out = _volume_forward(self.params, self.mcfg, batch.ctx[b], rays,
-                                      None if t_rand is None else t_rand[b, sl], S, bg)
+                out = self._frame_forward(batch.ctx[b], rays,
+                                          None if rand is None else rand[b, sl])
                 loss, st = anisdf_losses(self.weights, out, rays, iter_step)
                 (loss / (B * NC)).backward()
                 for k, v in st.items():
                     v = v.detach() / (B * NC)
                     stats[k] = stats[k] + v if k in stats else v
+        for _, t in self.named:
+            if t.grad is None:      # unused by this stage (the relight step's rgb)
+                t.grad = torch.zeros_like(t)
         self.optimizer.step()
         return stats
+
+    def _frame_forward(self, ctx, rays: dotdict, rand) -> dotdict:
+        """The training render of one frame's rays: the volume render of
+        stage 1 (``rand`` the stratified draws or None) or the sphere-traced
+        relight block of stage 2 with the learnt envmap and the light grid
+        (JAX ``Trainer._build_step``'s ``frame_loss``; ``rand`` the jitter)."""
+        if not self.relight:
+            return _volume_forward(self.params, self.mcfg, ctx, rays, rand,
+                                   int(self.cfg.n_samples), float(self.cfg.bg_brightness))
+        stats = {}
+        out = render_human_block(
+            self.params, self.mcfg, ctx, rays.ray_o, rays.ray_d, rays.near, rays.far,
+            anisdf.global_env_map(self.params, self.mcfg), *self.lights, self.st_surf,
+            self.st_obj, self.rcfg, training=True, jitter_noise=rand.reshape(-1, 3),
+            stats=stats)
+        self.shadow_rays += stats.get('shadow_rays', 0)
+        return out
+
+    def step_flops(self, batch: dotdict) -> int:
+        """Analytic FLOPs of the last step on ``batch`` (``utils/flops.py``;
+        the relight step's count takes the shadow rays it traced)."""
+        B, R = batch.rgb.shape[:2]
+        S = int(self.cfg.n_samples)
+        n_verts = int(batch.ctx[0]['pverts'].shape[0])
+        if not self.relight:
+            return train_step_flops(self.mcfg, B * R * S, n_verts)
+        return relight_step_flops(self.mcfg, B * R, S, self.mcfg.env_h * self.mcfg.env_w,
+                                  n_verts, self.st_surf.iter, self.st_obj.iter,
+                                  self.shadow_rays)
 
     # ------------------------------------------------------- full-state aux
     def aux_state(self, it_in_epoch: int = 0) -> dict:
@@ -277,20 +328,18 @@ class Trainer:
                 log('batch carries `sem` but the network produces no sem_map: '
                     'semantic loss is inactive', 'yellow')
                 self._warned_sem = True
-            if self._step_flops is None:
-                B, R = batch.rgb.shape[:2]
-                self._step_flops = train_step_flops(self.mcfg, B * R * int(cfg.n_samples),
-                                                    int(batch.ctx[0]['pverts'].shape[0]))
             stats = self.step(batch, self.recorder.step)
+            step_flops = self.step_flops(batch)
             it += 1
             self.recorder.step += 1
+            self.profiler.step()
             if it % cfg.log_interval == 0:
                 # one device -> host copy for all the stats
                 vals = torch.stack(list(stats.values())).cpu().numpy()
                 dt = (time.perf_counter() - t_iter) / cfg.log_interval
                 t_iter = time.perf_counter()
                 self.recorder.update(dict(zip(stats.keys(), (float(v) for v in vals))))
-                tf = self._step_flops / 1e12
+                tf = step_flops / 1e12
                 log(f"ep {epoch} it {it}/{ep_iter} lr {self._lr_sched(self.recorder.step):.3e} "
                     f"{self.recorder} {dt:.3f}s/it {tf:.3f} TFLOP/step (analytic) "
                     f"{tf / dt:.2f} TFLOP/s eta {dt * (ep_iter - it):.0f}s", 'cyan')

@@ -46,3 +46,41 @@ def train_step_flops(mcfg, n_points: int, n_verts: int) -> int:
     forward each); the render MLP 3 times (forward and its reverse pass)."""
     hdq = anisdf_hdq_flops(mcfg, 1, n_verts) - 8 * n_verts
     return n_points * (8 * n_verts + 6 * hdq + 3 * render_net_flops(mcfg))
+
+
+def relight_heads_flops(mcfg) -> int:
+    """Matmul FLOPs of the albedo and roughness heads a point
+    (relight_network.py:45-77)."""
+    hidden = [mcfg.relight_width] * mcfg.relight_depth
+    return mlp_flops([mcfg.feat_dim] + hidden + [3]) + mlp_flops([mcfg.feat_dim] + hidden + [1])
+
+
+# operations of the shading a (ray, light texel) pair: the GGX microfacet
+# BRDF (normalisations, the half vector, four dot products, Schlick's
+# Fresnel, the GGX distribution and geometry terms, the Lambert term; ~90),
+# the bilinear envmap lookup of the texel's direction (~40) and the shade
+# and its sum over texels (~20)
+SHADE_FLOPS = 150
+
+
+def relight_step_flops(mcfg, n_rays: int, n_samples: int, n_lights: int, n_verts: int,
+                       trace_iters: int, shadow_iters: int, shadow_rays: int) -> int:
+    """Analytic FLOPs of one stage-2 train step over ``n_rays`` camera rays
+    (all frames) that traced ``shadow_rays`` shadow rays.  HDQ queries
+    count the KNN (8 a vertex) and the residual and SDF MLPs, on every
+    query (the band holds a traced ray's queries but those of the first
+    steps): the camera trace's ``trace_iters`` and the shadow trace's
+    ``shadow_iters`` a ray, forward only; the edge and closest re-query, 2
+    a ray, forward and reverse (3x the MLPs); the band forward of
+    ``n_samples`` a ray as in the stage-1 step (the MLPs 6x) with the heads
+    3x, and the jittered pair, the SDF MLP and the heads forward and
+    reverse (3x); the shading of every (ray, texel) pair forward and
+    reverse (3x :data:`SHADE_FLOPS`)."""
+    knn = 8 * n_verts
+    hdq = anisdf_hdq_flops(mcfg, 1, n_verts) - knn
+    sdf = mlp_flops([embed_dim(3, mcfg.sdf_res)] + [256] * 8 + [1 + mcfg.feat_dim])
+    heads = relight_heads_flops(mcfg)
+    trace = (n_rays * trace_iters + shadow_rays * shadow_iters) * (knn + hdq)
+    requery = 2 * n_rays * (knn + 3 * hdq)
+    band = n_rays * n_samples * (knn + 6 * hdq + 3 * heads + 3 * (sdf + heads))
+    return trace + requery + band + 3 * SHADE_FLOPS * n_rays * n_lights

@@ -2,7 +2,7 @@
 plain version on the card, the relight render on the card, the slice sweep
 and the bfloat16 MLP route on the card against the CPU, the bench-stack
 golden, the bfloat16 weight gradient, the stage-1 train step, the
-novel-light sweep, the ground frame, the volume frame,
+stage-2 bf16 step's gradients, the novel-light sweep, the ground frame, the volume frame,
 ``run -t evaluate`` and the mesh extraction on the card against the CPU, and
 the kernel on a chunk of the 5 mm mesh grid.  They skip with a reason where torch finds no CUDA device; on the
 card run them with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
@@ -208,6 +208,34 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, bf16, tmp_path):
     else:
         assert abs(res["cuda"]["loss"] - res["cpu"]["loss"]) <= 1e-5 * abs(res["cpu"]["loss"])
         assert max(v[0] for v in cmp.values()) <= 1e-4, {k: v[0] for k, v in cmp.items()}
+
+
+def test_relight_bf16_step_gradients_on_the_card(cuda, tmp_path):
+    """The small stage-2 step (``eval/train_check.py``'s relight check, bf16,
+    the residual MLP's last weight re-drawn) on the card and on the CPU with
+    the same jitter: every weight's gradient nonzero, the albedo and
+    roughness heads' and the envmap's included (the stage-1 render MLP
+    rides in the checkpoint unused), each with cosine >= 0.9 to the CPU's
+    and each sub-network's gradient, all its tensors together, >= 0.995:
+    the bf16 gradients move with the float32 summation order (chip_smoke.py's
+    RELIGHT_BF16_COS).  The card's step launches the KNN kernel."""
+    from relightableavatar_tpu_torch.eval import train_check
+    res = {}
+    for dev in ("cpu", cuda):
+        cfg = train_check.relight_step_cfg(bf16=True, record_dir=str(tmp_path / str(dev)))
+        trainer, batch, jitter = train_check.make_relight_check(cfg, dev)
+        train_check.live_residual(trainer)
+        n0 = knn_cuda.KNN_TOP3.launches
+        res[str(dev)] = train_check.step_result(trainer, batch, jitter)
+        if dev != "cpu":
+            assert knn_cuda.KNN_TOP3.launches > n0
+    cmp = train_check.compare_grads(res["cuda"], res["cpu"])
+    assert all(cmp[k][2] > 0 for k in ('albedo/layers/0/w', 'roughness/layers/0/w', 'env'))
+    for k, (rel, cos, top) in cmp.items():
+        if not k.endswith(("/b", "beta")) and not k.startswith("rgb/"):
+            assert top > 0 and cos >= 0.9, (k, cos)
+    nets = train_check.compare_nets(res["cuda"], res["cpu"])
+    assert "rgb" not in nets and min(nets.values()) >= 0.995, nets
 
 
 def test_benchstack_golden_on_the_card(cuda):

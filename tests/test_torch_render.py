@@ -157,6 +157,22 @@ def test_check_termination_sdf_stats(fixture_scene):
     assert np.isfinite(s) and s >= 0 and 0 < n <= 256 and s / n < 0.5
 
 
+def test_check_termination_sdf_reads_the_network_under_smpl_distance(fixture_scene):
+    """With ``smpl_distance`` the trace marches the canonical SMPL mesh's
+    SDF, but the termination statistic is the network's own |sdf| at the
+    hit points, as the JAX package's (``mcfg._replace(smpl_distance=False)``,
+    ``renderer/sphere_tracing.py:396-399``)."""
+    from relightableavatar_tpu_torch.models import anisdf
+    _, ctx, params, mcfg = fixture_scene
+    out = golden.render_golden_bundle(ctx, params, mcfg._replace(smpl_distance=True),
+                                      device="cpu", rcfg_extra={'check_termination_sdf': True})
+    hit = out.acc_map > 0
+    with torch.no_grad():
+        net = anisdf.hdq_sdf(params, mcfg, ctx, out.surf_map[hit], smooth_transition=True)
+    assert int(hit.sum()) == int(out.term_sdf_cnt[0]) > 0
+    np.testing.assert_allclose(float(out.term_sdf_sum[0]), float(net.abs().sum()), rtol=1e-5)
+
+
 UNPORTED = [('tpu', 'surf_grid_iters', 8),
             ('tpu', 'shadow_compact', 0.5), ('tpu', 'shadow_skip_resd', True),
             ('tpu', 'shadow_verts_sub', 4), ('tpu', 'knn_impl', 'grouped'),

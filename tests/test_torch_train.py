@@ -588,10 +588,34 @@ def test_training_render_matches_jax():
 
 
 def test_training_render_raises_for_the_relight_network():
+    """The relight network's ``forward(training=True)`` on the fixture in
+    float32, at 96 posed vertices + N(0, 15 cm) of frame 0 with JAX's
+    jitter (``tests/test_torch_relight_train.py`` holds it in float64):
+    raw = [albedo, rough, norm, occ], albedo, roughness, their jittered pair
+    and the geometry terms within POINT_REL of the largest entry of JAX's."""
     cfg = golden.fixture_cfg()
     ctx, params, mcfg = golden.load_fixture(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="10b"):
-        anisdf.forward(params, mcfg, ctx, torch.zeros(4, 3), torch.ones(4, 3), training=True)
+    rng = np.random.default_rng(2)
+    pv = ctx['pverts'].numpy() @ ctx['R'].numpy().T + ctx['Th'].numpy().reshape(3)
+    x = (pv[rng.integers(0, len(pv), 96)] + rng.normal(0, 0.15, (96, 3))).astype(np.float32)
+    v = rng.normal(size=(96, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    key = jax.random.PRNGKey(1)
+    noise = np.asarray(jax.random.normal(key, (96, 3)) * 0.02)
+    jparams, jmcfg, jctx = jax_scene()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_anisdf, "knn_unchunked",
+                   lambda p, v, K=3, exact=False, fast=False: exact_knn(p, v, K))
+        ref = j_anisdf.forward(jparams, jmcfg, jctx, jnp.asarray(x), jnp.asarray(v),
+                               training=True, jitter_key=key)
+    ours = anisdf.forward(params, mcfg, ctx, torch.tensor(x), torch.tensor(v), training=True,
+                          jitter_noise=torch.tensor(noise))
+    assert set(ours) == set(ref) and ours.raw.shape == (96, 8)
+    assert 0 < int(ours.mask.sum()) < 96
+    for k, val in ref.items():
+        val = np.asarray(val, np.float64)
+        err = np.abs(ours[k].detach().numpy() - val).max() / (np.abs(val).max() or 1.0)
+        assert err <= POINT_REL, (k, err)
 
 
 def test_spatial_gradients_agree_and_stay_differentiable():
@@ -730,9 +754,18 @@ def test_flops_match_jax():
 
 
 def test_trainer_refuses_what_is_not_ported(scene):
-    for key, val in (('relighting', True), ('profiling.enabled', True)):
-        cfg = scene['pc'].clone()
-        node, leaf = (cfg.profiling, 'enabled') if '.' in key else (cfg, key)
-        node[leaf] = val
-        with pytest.raises(NotImplementedError, match="10b"):
-            _port_trainer(scene, cfg=cfg)
+    """The relight step and the profiler's traces build (``cfg.relighting``:
+    the render config, the tracers and the light grid; ``cfg.profiling``);
+    a relight trainer still refuses a render option that is not ported,
+    naming it."""
+    cfg = scene['pc'].clone()
+    cfg.relighting = True
+    trainer = _port_trainer(scene, cfg=cfg)
+    assert trainer.relight and trainer.lights[0].shape == (cfg.env_h, cfg.env_w, 3)
+    cfg = scene['pc'].clone()
+    cfg.profiling.enabled = True
+    assert _port_trainer(scene, cfg=cfg).profiler.enabled
+    cfg.relighting = True
+    cfg.tpu.frame_fuse = True
+    with pytest.raises(NotImplementedError, match="frame_fuse"):
+        _port_trainer(scene, cfg=cfg)

@@ -160,3 +160,54 @@ def test_train_entry_trains_saves_resumes_and_renders(tree, tmp_path):
                               'n_samples', '8'], extra=['-t', 'network'])
     assert run_cfg.trained_model_dir == cfg.trained_model_dir
     run_network(run_cfg, device="cpu")
+
+
+def test_relight_train_entry_bootstraps_trains_resumes_and_renders(tree, tmp_path):
+    """Stage 2 through ``train`` on the CPU: a one-step stage-1 run, then
+    ``relighting True`` with ``geometry_pretrain`` at its checkpoint (the
+    network starts from its geometry, the relight heads and envmap from
+    ``init_anisdf``; a 4 x 8 light grid, 4 surface and 1 shadow
+    iterations, 2 frames x 32 rays x 3 samples), 2 epochs of 2 steps under
+    ``relight/tubeman_verify`` with the validation render after the second
+    (the sphere-traced renderer, its pred | gt image written), ``resume
+    True`` for a third epoch, and ``run -t network relighting True`` from
+    the stage-2 checkpoint."""
+    from relightableavatar_tpu_torch.models.factory import make_network
+    from relightableavatar_tpu_torch.weights import read_checkpoint
+    fast = ['n_rays', '32', 'train.batch_size', '2', 'train.num_workers', '2', 'eval_ep', '100',
+            'save_ep', '100', 'tpu.bf16_mlp', 'False', 'record_tb', 'False',
+            'record_dir', str(tmp_path / 'record'), 'result_dir', str(tmp_path / 'result')]
+    geo, _ = _cfgs(tree, ['exp_name', 'tubeman_verify', 'trained_model_dir', str(tmp_path / 'm'),
+                          'n_samples', '4', 'ep_iter', '1', 'train.epoch', '1', 'resume', 'False',
+                          *fast])
+    port_train(geo, device="cpu")
+    common = ['relighting', 'True', 'geometry_pretrain', geo.trained_model_dir,
+              'exp_name', 'tubeman_verify', 'trained_model_dir', str(tmp_path / 'm'),
+              'env_h', '4', 'env_w', '8', 'sphere_tracing.iter', '4', 'obj_lvis.iter', '1',
+              'network_chunk_size', '4096', 'ep_iter', '2', *fast]
+    cfg, _ = _cfgs(tree, [*common, 'resume', 'False', 'train.epoch', '2', 'eval_ep', '2',
+                          'test_view', '[0]', 'test.frame_sampler_interval', '4'])
+    assert 'sphere_tracing' in cfg.renderer_module
+    assert cfg.trained_model_dir.endswith(os.path.join('relight', 'tubeman_verify'))
+    start, _ = make_network(cfg, device="cpu", cold_start=True)
+    stage1, _, _ = read_checkpoint(geo.trained_model_dir)
+    assert torch.equal(start['sdf']['layers'][0]['v'], torch.tensor(stage1['sdf/layers/0/v']))
+    assert {'albedo', 'roughness', 'env'} <= set(start) and start['env'].shape[:2] == (8, 16)
+    trainer = port_train(cfg, device="cpu")
+    assert sorted(os.listdir(cfg.trained_model_dir)) == ['1.npz', '2.npz', 'latest.npz']
+    rows = [json.loads(line) for line in open(os.path.join(cfg.record_dir, 'scalars.jsonl'))]
+    assert len(rows) == 4 and all(np.isfinite(r['loss']) for r in rows)
+    assert {'albedo_smooth', 'roughness_smooth', 'volume_entropy'} <= set(rows[-1])
+    assert trainer.recorder.step == 4 and trainer.shadow_rays > 0
+    assert os.path.exists(os.path.join(cfg.record_dir, 'images', 'ep0001_val_pred_gt.png'))
+
+    cfg, _ = _cfgs(tree, [*common, 'resume', 'True', 'train.epoch', '3'])
+    trainer = port_train(cfg, device="cpu")
+    assert trainer.recorder.step == 6 and trainer.optimizer.count == 6
+    with np.load(os.path.join(cfg.trained_model_dir, 'latest.npz')) as f:
+        assert int(f['epoch']) == 3
+
+    run_cfg, _ = _cfgs(tree, [*common, 'test_view', '[0]', 'test.frame_sampler_interval', '4'],
+                       extra=['-t', 'network'])
+    assert run_cfg.trained_model_dir == cfg.trained_model_dir
+    run_network(run_cfg, device="cpu")
