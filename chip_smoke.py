@@ -123,6 +123,25 @@ Phases, each printing one flushed line with its wall seconds:
           geometry_pretrain <[train]'s checkpoint>`` (2 epochs of 3
           iterations), ``resume True`` for a third epoch, and ``run -t
           network relighting True`` from the stage-2 checkpoint
+  options the HDQ, shadow-ray and camera-trace options: the 512² frames of
+          ``golden.options_frame_cfg()`` (the exact frame with
+          shadow_compact 0.25, shadow_skip_resd, shadow_verts_sub 4) and
+          ``golden.premarch_frame_cfg()`` (the accel stack with the
+          pre-march of 20 steps on the grid's lower bound and 4 exact
+          iterations instead of the miss skip, the bake on the vertex
+          subsample) through SphereTracingRenderer.render: median seconds of
+          3 renders after a warm-up, K1's launches a frame, peak memory,
+          finite maps, hits; the kernel bit for bit against the plain
+          version on the subsample route's first full shadow block (P =
+          32,768, N = 2,048, from the exact frame with shadow_verts_sub 4)
+          and on the options frame's first compacted shadow block, each
+          timed beside the plain version and torch.cdist + topk, with its
+          bound; knn_grouped on the card equal to the CPU's and knn_select
+          equal apart from rows whose bfloat16 values tie, on 8,192 of that
+          block's points; every entry of ``golden.OPTION_CHECKS`` as a
+          32x32 frame and the ablations world, can and curve on the 256-ray
+          near-body bundle (``golden.near_bundle_rays``), card against CPU:
+          >= 50 dB on every map, spec_map within 20 % of each pixel
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them; where the kernel and its plain
@@ -237,6 +256,18 @@ RELIGHT_GRAD_REL = 1e-3     # f32: max |card - cpu| / max |cpu| of each paramete
 # five times those distances from 1
 RELIGHT_BF16_COS = 0.9      # each weight's gradient, cosine to the CPU's
 RELIGHT_BF16_NET_COS = 0.995  # each sub-network's gradient, all its tensors together
+# the options phase: two 512² frames timed, the option checks card vs CPU
+OPTION_RENDERS = 3          # timed renders a frame after one warm-up
+SUB_N = 2048                # vertices of the shadow rays' subsample
+# spec_map of a small frame, card vs CPU: max |diff| / max(|cpu|, 1) a pixel.
+# Its 1 / |ldot| weight at grazing texels (ROADMAP, "spec_map parity") moves
+# it on the CPU alone when the weights move by one part in 1e7
+# (eval/options_cpu.py, worst of 3 draws; PERF.md §6): by 3.6 % in the
+# knn_xla frame, 3.2 % premarch, 0.72-0.75 % the exact-selection frames,
+# 0.08 % hash.  The bar is about five times the largest
+OPTION_SPEC_REL = 0.2
+SELECT_P = 8192             # points of the KNN routes' card-vs-CPU check
+GROUPED_D2_REL = 1e-6       # knn_grouped's d2, card vs CPU (summation order)
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -867,6 +898,167 @@ def train_relight_phase(smi: str, tmp: str, geometry: str) -> dict:
     return ret
 
 
+def options_phase(smi: str, ctx: dict, batch, n_fg: int) -> dict:
+    """The [options] phase (see the module docstring).  Returns the two
+    frames' KNN launches a frame and the kernel's times on the recorded
+    subsample shadow block and compacted shadow block, with their bounds
+    and largest |d2| difference from the plain version."""
+    t0 = time.perf_counter()
+    ret = {"max_err": 0.0, "inputs": {}}
+    compacted: dict = {}        # the options frame's first full shadow block
+    frames = {}
+    for name, cfg_fn in (("options", golden.options_frame_cfg),
+                         ("premarch", golden.premarch_frame_cfg)):
+        cfg = cfg_fn()
+        _, params, mcfg = golden.load_fixture(cfg, device="cuda")
+        renderer = SphereTracingRenderer(cfg, params, mcfg, device="cuda")
+        with record_knn_inputs(compacted if name == "options" else {}, sizes=(SHADOW_P,),
+                               tail=False):
+            renderer.render(batch)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        knn_cuda.KNN_TOP3.launches = 0
+        for _ in range(OPTION_RENDERS):
+            t1 = time.perf_counter()
+            res = renderer.render(batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        launches = knn_cuda.KNN_TOP3.launches
+        check(launches > 0, f"the {name} frame did not launch the KNN kernel")
+        check(launches % OPTION_RENDERS == 0, f"the {name} frame's launches {launches} differ "
+              "between its renders")
+        check(res.rgb_map.shape == (n_fg, 3), f"{name} frame shapes")
+        for k, v in res.items():
+            if isinstance(v, torch.Tensor):
+                check(bool(torch.isfinite(v).all()), f"{name} frame {k} not finite")
+        hits = int((res.acc_map > 0).sum())
+        check(hits > 0, f"the {name} frame hit nothing")
+        frames[name] = dict(s=statistics.median(secs), secs=secs, hits=hits,
+                            launches=launches // OPTION_RENDERS,
+                            peak=torch.cuda.max_memory_allocated() / 2**30)
+        del res, renderer
+    ret["launches_options"] = frames["options"]["launches"]
+    ret["launches_premarch"] = frames["premarch"]["launches"]
+    # the subsample route's first full shadow block: the exact frame with
+    # tpu.shadow_verts_sub alone (under shadow_compact the shadow HDQ takes
+    # the full cloud, as the JAX package's does)
+    cfg = golden.frame_cfg()
+    cfg.tpu.shadow_verts_sub = 4
+    _, params, mcfg = golden.load_fixture(cfg, device="cuda")
+    subsample: dict = {}
+    with record_knn_inputs(subsample, sizes=(SHADOW_P,), tail=False):
+        t1 = time.perf_counter()
+        SphereTracingRenderer(cfg, params, mcfg, device="cuda").render(batch)
+        torch.cuda.synchronize()
+        sub_s = time.perf_counter() - t1
+    N = int(ctx["pverts"].shape[0])
+    for store, n, name in ((subsample, SUB_N, "subsample shadow block"),
+                           (compacted, N, "compacted shadow block")):
+        check(SHADOW_P in store and store[SHADOW_P][1].shape[0] == n,
+              f"{name}: no KNN call of {SHADOW_P} points against {n} vertices")
+        p, vv = store[SHADOW_P]
+        d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+        d2r, ir = knn_top3_reference(p, vv)
+        ret["max_err"] = max(ret["max_err"], max_abs_diff(d2k, d2r))
+        check_knn_equal(f"{name} P={p.shape[0]} N={vv.shape[0]}", p, vv, d2k, ik, d2r, ir)
+        ms = time_in_turns({"kernel": lambda p=p, vv=vv: knn_cuda.knn_top3_cuda(p, vv)},
+                           REPS)["kernel"]
+        plain_ms, library_ms = yardstick_ms(p, vv)
+        ret["inputs"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=knn_bound_ms(p.shape[0], vv.shape[0])[0],
+                                   N=vv.shape[0])
+    # the KNN routes with no hand-written kernel, card against CPU
+    p = compacted[SHADOW_P][0][:SELECT_P].contiguous()
+    keys = ("knn_gverts", "knn_gcent", "knn_gradius", "knn_gvid")
+    d2g, ig = knn_mod.knn_grouped(p, *[ctx[k] for k in keys])
+    d2gc, igc = knn_mod.knn_grouped(p.cpu(), *[ctx[k].cpu() for k in keys])
+    grouped_rows = int((ig.cpu() != igc).any(dim=1).sum())
+    grouped_rel = float(((d2g.cpu() - d2gc).abs() / d2gc.clamp(min=1e-12)).max())
+    # the indices equal; d2 (a 3-term sum the HDQ does not read) to an ulp or two
+    check(grouped_rows == 0 and grouped_rel <= GROUPED_D2_REL,
+          f"knn_grouped card vs CPU: {grouped_rows} of {SELECT_P} rows differ, d2 max "
+          f"relative {grouped_rel:.3e}")
+    sel = knn_mod.knn_select(p, ctx["pverts"]).cpu()
+    selc = knn_mod.knn_select(p.cpu(), ctx["pverts"].cpu())
+    rows = (sel != selc).any(dim=1)
+    bf = [(p.cpu()[rows, i:i + 1] - ctx["pverts"].cpu()[None, :, i]).to(torch.bfloat16)
+          for i in range(3)]
+    d2b = ((bf[0] * bf[0] + bf[1] * bf[1]) + bf[2] * bf[2]).float()
+    check(torch.equal(torch.gather(d2b, 1, sel[rows]), torch.gather(d2b, 1, selc[rows])),
+          "knn_select card vs CPU: rows differ beyond bf16 ties")
+    select_ties = int(rows.sum())
+    # every option on the small frame, the ablations on the near-body bundle
+    t1 = time.perf_counter()
+    held, spec, failed = {}, {}, []
+    for name, opts in golden.OPTION_CHECKS:
+        cfg = golden.option_check_cfg(opts)
+        card = golden.render_check_frame(cfg, device="cuda")
+        cpu = golden.render_check_frame(cfg, device="cpu")
+        held[name], spec[name] = _card_vs_cpu(f"32x32 {name} frame", card, cpu, failed)
+    _, params_c, mcfg_c = golden.load_fixture(device="cpu")
+    ctx_c = {k: v.cpu() for k, v in ctx.items()}
+    _, params_g, _ = golden.load_fixture(device="cuda")
+    for mode in ("world", "can", "curve"):
+        extra = {'ablate_mode': mode}
+        card = golden.render_golden_bundle(ctx, params_g, mcfg_c, device="cuda",
+                                           rcfg_extra=extra, near_bundle=True)
+        cpu = golden.render_golden_bundle(ctx_c, params_c, mcfg_c, device="cpu",
+                                          rcfg_extra=extra, near_bundle=True)
+        card = {k: v.cpu().numpy() for k, v in card.items()}
+        cpu = {k: v.numpy() for k, v in cpu.items()}
+        check(bool((cpu["acc_map"] > 0).any()), f"the {mode} bundle hit nothing")
+        held[mode], spec[mode] = _card_vs_cpu(f"near-body bundle {mode}", card, cpu, failed)
+    check_s = time.perf_counter() - t1
+    print("[options] card vs CPU, worst map dB / spec_map max relative: " + ", ".join(
+        f"{k} {held[k]:.2f} / {spec[k]:.2e}" for k in held), flush=True)
+    check(not failed, "; ".join(failed))
+    fr = frames
+    phase("options", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} frames ({smi}), median of "
+          f"{OPTION_RENDERS} renders after a warm-up: options (shadow_compact 0.25, "
+          f"shadow_skip_resd, shadow_verts_sub 4; {fr['options']['hits']} hit) "
+          f"{fr['options']['s']:.3f} s (" + ", ".join(f"{x:.3f}" for x in fr['options']['secs'])
+          + f"), K1 launches {fr['options']['launches']} a frame, peak "
+          f"{fr['options']['peak']:.2f} GiB; premarch (accel stack, surf_grid_iters 20, "
+          f"surf_exact_iters 4, the bake on the subsample; {fr['premarch']['hits']} hit) "
+          f"{fr['premarch']['s']:.3f} s (" + ", ".join(f"{x:.3f}" for x in fr['premarch']['secs'])
+          + f"), K1 launches {fr['premarch']['launches']} a frame, peak "
+          f"{fr['premarch']['peak']:.2f} GiB; the exact frame with shadow_verts_sub 4 "
+          f"{sub_s:.3f} s (first render); K1 equal to the plain version, kernel / plain / "
+          "cdist+topk / bound " + ", ".join(
+              f"{k} P={SHADOW_P} N={v['N']} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+              f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ms" for k, v in ret["inputs"].items())
+          + f"; knn_grouped card = CPU on {SELECT_P} points (d2 max relative "
+          f"{grouped_rel:.2e}), knn_select rows on bf16 ties "
+          f"{select_ties} of {SELECT_P}; card vs CPU ({check_s:.1f} s), worst map dB / "
+          "spec_map max relative: " + ", ".join(
+              f"{k} {held[k]:.2f} / {spec[k]:.2e}" for k in held))
+    return ret
+
+
+def _card_vs_cpu(name: str, card: dict, cpu: dict, failed: list) -> tuple[float, float]:
+    """Holds every map of ``card`` to ``cpu``: >= CARD_CPU_MIN_PSNR, spec_map
+    within OPTION_SPEC_REL of each pixel; a map that misses its bar is added
+    to ``failed``.  Returns (worst PSNR of the other maps, spec_map's largest
+    relative difference)."""
+    check(set(card) == set(cpu), f"{name}: maps {sorted(card)} vs {sorted(cpu)}")
+    worst, spec = 120.0, 0.0
+    for k in cpu:
+        check(card[k].shape == cpu[k].shape and np.isfinite(card[k]).all(),
+              f"{name} {k}: shape or not finite")
+        if k == "spec_map":
+            spec = float((np.abs(card[k] - cpu[k]) / np.maximum(np.abs(cpu[k]), 1)).max())
+            if spec > OPTION_SPEC_REL:
+                failed.append(f"{name} spec_map: card vs CPU max relative {spec:.3e} > "
+                              f"{OPTION_SPEC_REL}")
+        else:
+            p = golden.psnr(card[k], cpu[k])
+            worst = min(worst, p)
+            if p < CARD_CPU_MIN_PSNR:
+                failed.append(f"{name} {k}: card vs CPU {p:.2f} dB")
+    return worst, spec
+
+
 def main() -> None:
     # ---- device
     t0 = time.perf_counter()
@@ -1282,7 +1474,11 @@ def main() -> None:
         train = train_phase(smi, tmp)
         torch.cuda.empty_cache()
         relight = train_relight_phase(smi, tmp, train["model_dir"])
-    max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"], relight["max_err"])
+    torch.cuda.empty_cache()
+    # ---- the options of the HDQ, the shadow rays and the camera trace
+    opts = options_phase(smi, ctx, batch, n_fg)
+    max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"], relight["max_err"],
+                  opts["max_err"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1300,6 +1496,8 @@ def main() -> None:
         "launches_mesh": mesh["launches"],
         "launches_train": train["launches"],
         "launches_train_relight": relight["launches"],
+        "launches_options": opts["launches_options"],
+        "launches_premarch": opts["launches_premarch"],
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -1332,6 +1530,7 @@ def main() -> None:
         "train_relight_input_plain_ms": relight["plain_ms"],
         "train_relight_input_library_ms": relight["library_ms"],
         "train_relight_input_bound_ms": relight["bound_ms"],
+        "options_inputs": opts["inputs"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

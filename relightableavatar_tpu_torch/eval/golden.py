@@ -109,6 +109,33 @@ def sweep_frame_cfg():
     return cfg
 
 
+def options_frame_cfg():
+    """:func:`frame_cfg` with the shadow HDQ's options: the block's quarter
+    of closest points through the network (``tpu.shadow_compact 0.25``), no
+    residual MLP (``tpu.shadow_skip_resd``) and ``tpu.shadow_verts_sub 4``,
+    which under ``shadow_compact`` leaves the shadow KNN on the full cloud,
+    as the JAX package's does.  With no shadow grid, every shadow ray
+    queries that HDQ."""
+    cfg = frame_cfg()
+    cfg.tpu.shadow_compact = 0.25
+    cfg.tpu.shadow_skip_resd = True
+    cfg.tpu.shadow_verts_sub = 4
+    return cfg
+
+
+def premarch_frame_cfg():
+    """:func:`accel_frame_cfg` with the camera trace's pre-march instead of
+    the miss skip: 20 steps on the grid's lower bound, then 4 exact
+    iterations (``scripts/profile_phases.py:91-92``), the grid baked
+    against the vertex subsample (``tpu.shadow_verts_sub 4``)."""
+    cfg = accel_frame_cfg()
+    cfg.tpu.surf_miss_skip = False
+    cfg.tpu.surf_grid_iters = 20
+    cfg.tpu.surf_exact_iters = 4
+    cfg.tpu.shadow_verts_sub = 4
+    return cfg
+
+
 def ground_frame_cfg():
     """:func:`accel_frame_cfg` with the full-frame ground pass: every pixel
     of the frame shades the ground plane under the learned envmap, with
@@ -160,13 +187,66 @@ def volume_check_cfg(cull: int = 0):
     return cfg
 
 
+# the HDQ, shadow-ray and camera-trace options, each on the small check frame:
+# (name, {cfg key: value}); keys with a dot are cfg.tpu's
+OPTION_CHECKS = [
+    ("shadow_compact", {'tpu.shadow_compact': 0.25}),
+    ("shadow_skip_resd", {'tpu.shadow_skip_resd': True}),
+    ("shadow_verts_sub", {'tpu.shadow_verts_sub': 4}),
+    ("knn_xla", {'tpu.knn_impl': 'xla'}),
+    ("knn_grouped", {'tpu.knn_impl': 'grouped'}),
+    ("sample_vert_cnt_4", {'sample_vert_cnt': 4}),
+    ("premarch", {'tpu.shadow_grid': 48, 'tpu.surf_grid_iters': 20, 'tpu.surf_exact_iters': 4,
+                  'tpu.shadow_verts_sub': 4}),
+    ("e_type_hash", {'e_type': 'hash'}),
+]
+
+
+def option_check_cfg(opts: dict):
+    """The small option frame (``CHECK_SIZE`` squared) that holds the card to
+    the CPU: the fixture avatar in float32, 6 surface / 2 shadow
+    iterations, 16x32 texels, ``ray_block`` 256, with ``opts`` (an entry of
+    :data:`OPTION_CHECKS`)."""
+    cfg = fixture_cfg()
+    cfg.sphere_tracing.iter = 6
+    cfg.obj_lvis.iter = 2
+    cfg.tpu.ray_block = 256
+    for key, value in opts.items():
+        node, _, leaf = key.rpartition('.')
+        (cfg[node] if node else cfg)[leaf] = value
+    return cfg
+
+
+def hash_params(mcfg, device="cuda", seed: int = 0) -> dict:
+    """A freshly initialised ``e_type='hash'`` network (``init_anisdf`` from
+    a seeded CPU generator, so every device gets the same draw) with the
+    SDF output's bias lowered by 0.6 m: at init its zero set lies outside
+    the HDQ band and no ray hits."""
+    from relightableavatar_tpu_torch.models.anisdf import init_anisdf
+    params = init_anisdf(torch.Generator().manual_seed(seed), mcfg, device=device)
+    params['sdf']['layers'][-1]['b'][0] -= 0.6
+    return params
+
+
+def load_check_network(cfg, device="cuda", root: str = REPO):
+    """(ctx, params, mcfg) of a check frame: the fixture's (frame 0), with
+    a hash network (:func:`hash_params`) in place of its weights under
+    ``e_type='hash'``."""
+    if cfg.get('e_type', 'pe') != 'hash':
+        return load_fixture(cfg, device=device, root=root)
+    ctx, _, _ = load_fixture(fixture_cfg(), device=device, root=root)
+    mcfg = AniSDFConfig.from_cfg(cfg)
+    return ctx, hash_params(mcfg, device=device), mcfg
+
+
 def render_check_frame(cfg, device="cuda", root: str = REPO) -> dict:
     """The ``CHECK_SIZE`` squared frame of ``cfg`` (fixture frame 0, camera
-    0): the volume renderer when ``cfg.relighting`` is off, else
-    ``SphereTracingRenderer``.  Returns its maps as float32 numpy."""
+    0; :func:`load_check_network`): the volume renderer when
+    ``cfg.relighting`` is off, else ``SphereTracingRenderer``.  Returns its
+    maps as float32 numpy."""
     from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
     from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
-    ctx, params, mcfg = load_fixture(cfg, device=device, root=root)
+    ctx, params, mcfg = load_check_network(cfg, device=device, root=root)
     batch, _ = frame_batch(ctx, CHECK_SIZE, CHECK_SIZE)
     cls = SphereTracingRenderer if cfg.relighting else VolumeRenderer
     out = cls(cfg, params, mcfg, device=device).render(batch)
@@ -246,16 +326,43 @@ def golden_bundle_rays(ctx, P: int = 256):
     return ray_o, ray_d
 
 
+NEAR_BUNDLE_NEAR, NEAR_BUNDLE_FAR = 0.05, 1.2
+
+
+def near_bundle_rays(ctx, P: int = 256):
+    """P rays (numpy rng 7) from 0.45 m beside the body's box centre toward
+    N(0, (0.15, 0.15, 0.4) m) targets around it, traced over
+    [NEAR_BUNDLE_NEAR, NEAR_BUNDLE_FAR]: the origins are close enough to
+    the body that the 'can' / 'curve' ablations' world -> bigpose transform
+    of an origin (its skinning weights' Gaussian of the nearest vertex
+    distances) does not underflow to zero, as it does for a camera 2 m
+    away."""
+    rng = np.random.default_rng(7)
+    center = ctx['wbounds'].cpu().numpy().mean(0)
+    ray_o = np.tile(center + [0, -0.45, 0], (P, 1)).astype(np.float32)
+    tgt = center + rng.normal(0, [0.15, 0.15, 0.4], (P, 3))
+    ray_d = (tgt - ray_o).astype(np.float32)
+    ray_d /= np.linalg.norm(ray_d, axis=-1, keepdims=True)
+    return ray_o, ray_d
+
+
 def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None,
-                         shadow_sdf_grid=None, lvis_volume=None):
+                         shadow_sdf_grid=None, lvis_volume=None, near_bundle: bool = False):
     """The 256-ray bundle of ``tests/test_golden.py:_render`` through the
     port's ``render_human_block``: 6 surface / 2 shadow iterations, a 2x4
     light grid, a constant 0.6 probe sampled at texel centres.  The grid
-    and volume go to ``render_human_block`` as they are."""
+    and volume go to ``render_human_block`` as they are.  ``near_bundle``
+    takes :func:`near_bundle_rays` over their near and far instead, with 16
+    surface iterations."""
     cfg = fixture_cfg()
-    cfg.sphere_tracing.iter = 6
+    cfg.sphere_tracing.iter = 16 if near_bundle else 6
     cfg.obj_lvis.iter = 2
-    ray_o, ray_d = golden_bundle_rays(ctx)
+    if near_bundle:
+        ray_o, ray_d = near_bundle_rays(ctx)
+        near, far = NEAR_BUNDLE_NEAR, NEAR_BUNDLE_FAR
+    else:
+        ray_o, ray_d = golden_bundle_rays(ctx)
+        near, far = 0.8, 4.0
     P = len(ray_o)
     t = lambda a: torch.as_tensor(a, device=device)
     lx, la = gen_light_xyz(2, 4, 10.0, device=device)
@@ -266,7 +373,7 @@ def render_golden_bundle(ctx, params, mcfg, device="cuda", rcfg_extra=None,
                                **(rcfg_extra or {}))
     return render_human_block(
         params, mcfg, ctx, t(ray_o), t(ray_d),
-        torch.full((P,), 0.8, device=device), torch.full((P,), 4.0, device=device),
+        torch.full((P,), near, device=device), torch.full((P,), far, device=device),
         torch.full((2, 4, 3), 0.6, device=device), lx, la, ls, st_surf, st_obj, rcfg,
         shadow_sdf_grid=shadow_sdf_grid, lvis_volume=lvis_volume)
 

@@ -1,12 +1,17 @@
 """AniSDF (``relightableavatar_tpu/models/anisdf.py``): the parameter
 initialisation, inverse-LBS warp with KNN skinning, the hierarchical distance
-query (HDQ) world SDF, and the network forward with autodiff normals, for
-inference and for the stage-1 training step.
+query (HDQ) world SDF with its shadow-ray options, the ablations' canonical
+and observed SDFs and transforms, and the network forward with autodiff
+normals, for inference and for the stage-1 training step.
 
-The KNN is always the exact top 3 (``ops/knn.py``); MLPs run in float32 or,
-under ``tpu.bf16_mlp`` / ``tpu.bf16_act``, with bfloat16 matmuls
-(``ops/mlp.py``).  The options not ported raise in
-:meth:`AniSDFConfig.from_cfg` instead of being ignored.
+The KNN route follows ``tpu.knn_impl``: 'auto' and 'pallas' are the exact
+top 3 (``ops/knn.py:knn_top3``, the Hopper kernel K1 on the card), 'xla'
+the JAX package's bfloat16 selection (``knn_select``), 'grouped' the
+two-level bounding-sphere KNN (``knn_grouped``); ``sample_vert_cnt`` > 3
+takes the exact plain top K.  The point encoder is the positional encoding
+or, under ``e_type='hash'``, the hash grid (``ops/hashgrid.py``).  MLPs run
+in float32 or, under ``tpu.bf16_mlp`` / ``tpu.bf16_act``, with bfloat16
+matmuls (``ops/mlp.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import torch.nn.functional as F
 
 from relightableavatar_tpu_torch.ops import lbs
 from relightableavatar_tpu_torch.ops.embedder import embed_dim, positional_encoding
-from relightableavatar_tpu_torch.ops.knn import knn_top3
+from relightableavatar_tpu_torch.ops.hashgrid import (HashGridConfig, hash_encode,
+                                                      hash_encoding_init)
+from relightableavatar_tpu_torch.ops.knn import knn, knn_grouped, knn_select, knn_top3, knn_topk
 from relightableavatar_tpu_torch.ops.mlp import (linear_apply, linear_init, mlp_apply, mlp_init,
                                                  ssdf_apply, ssdf_init)
 from relightableavatar_tpu_torch.ops.point_mesh import signed_mesh_distance
@@ -25,9 +32,13 @@ from relightableavatar_tpu_torch.ops.sdf import sdf_to_occ
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
 
+KNN_IMPLS = ('auto', 'pallas', 'xla', 'grouped')
+E_TYPES = ('pe', 'hash')
+
+
 class AniSDFConfig(NamedTuple):
-    """Architecture knobs (the JAX ``AniSDFConfig`` minus the options this
-    slice does not port)."""
+    """Architecture knobs (the JAX ``AniSDFConfig``; its ``knn_exact`` is
+    this one's default, the exact top 3)."""
     n_bones: int = 52
     cond_dim: int = 156
     feat_dim: int = 256
@@ -54,18 +65,24 @@ class AniSDFConfig(NamedTuple):
     bf16: bool = False          # bfloat16 matmuls, float32 accumulation
     bf16_act: bool = False      # with bf16: bfloat16 hidden activations
     smpl_distance: bool = False  # HDQ's band SDF from the canonical SMPL mesh
+    knn_xla: bool = False        # tpu.knn_impl 'xla': the bfloat16 selection
+    knn_grouped: bool = False    # tpu.knn_impl 'grouped': the two-level KNN
+    e_type: str = 'pe'           # point encoder: 'pe' or 'hash'
+
+    def hash_cfg(self) -> HashGridConfig:
+        """The JAX package's grid over the canonical volume [-2, 2]^3."""
+        return HashGridConfig()
 
     @classmethod
     def from_cfg(cls, cfg) -> "AniSDFConfig":
-        if cfg.tpu.knn_impl not in ('auto', 'pallas'):
-            raise NotImplementedError(
-                f"tpu.knn_impl={cfg.tpu.knn_impl!r}: the port has the exact "
-                "top-3 KNN only ('auto' or 'pallas')")
-        if cfg.get('e_type', 'pe') != 'pe':
-            raise NotImplementedError(f"e_type={cfg.e_type!r}: only 'pe' is ported")
-        if cfg.sample_vert_cnt != 3:
-            raise NotImplementedError(
-                f"sample_vert_cnt={cfg.sample_vert_cnt}: the KNN is top-3 only")
+        impl = cfg.tpu.knn_impl
+        if impl not in KNN_IMPLS:
+            raise ValueError(f"tpu.knn_impl={impl!r}: one of {KNN_IMPLS}")
+        e_type = cfg.get('e_type', 'pe')
+        if e_type not in E_TYPES:
+            raise ValueError(f"e_type={e_type!r}: one of {E_TYPES}")
+        if cfg.sample_vert_cnt < 1:
+            raise ValueError(f"sample_vert_cnt={cfg.sample_vert_cnt}: at least 1")
         return cls(
             n_bones=cfg.n_bones,
             cond_dim=cfg.cond_dim if cfg.cond_dim > 0 else cfg.n_bones * 3,
@@ -93,6 +110,9 @@ class AniSDFConfig(NamedTuple):
             bf16=bool(cfg.tpu.bf16_mlp),
             bf16_act=bool(cfg.tpu.bf16_act),
             smpl_distance=bool(cfg.smpl_distance),
+            knn_xla=impl == 'xla',
+            knn_grouped=impl == 'grouped',
+            e_type=e_type,
         )
 
 
@@ -102,9 +122,13 @@ def init_anisdf(generator: torch.Generator, mcfg: AniSDFConfig, device="cpu") ->
     package's ``init_anisdf`` (the reference module structure, so checkpoint
     keys map), drawn from ``generator`` (a CPU generator) and moved to
     ``device``.  Each sub-network draws in the JAX package's order: residual
-    MLP, SDF MLP, render MLP, relight heads."""
-    resd_in = embed_dim(3, mcfg.xyz_res)
-    sdf_in = embed_dim(3, mcfg.sdf_res)
+    MLP, SDF MLP, render MLP, the hash tables under ``e_type='hash'``,
+    relight heads."""
+    if mcfg.e_type == 'hash':
+        resd_in = sdf_in = mcfg.hash_cfg().out_dim
+    else:
+        resd_in = embed_dim(3, mcfg.xyz_res)
+        sdf_in = embed_dim(3, mcfg.sdf_res)
     params = {
         # ResidualDeformation (base_network.py:14-42)
         "resd": mlp_init(generator, input_ch=resd_in + mcfg.cond_dim, W=256, D=8,
@@ -116,6 +140,10 @@ def init_anisdf(generator: torch.Generator, mcfg: AniSDFConfig, device="cpu") ->
         # RenderNetwork (base_network.py:132-171): 5 weight-normed linears
         "rgb": _render_net_init(generator, mcfg),
     }
+    if mcfg.e_type == 'hash':
+        # one table for each encoder (reference base_network.py:23,57 e_type)
+        params["resd_hash"] = hash_encoding_init(generator, mcfg.hash_cfg())
+        params["sdf_hash"] = hash_encoding_init(generator, mcfg.hash_cfg())
     if mcfg.relight:
         params.update(init_relight_heads(generator, mcfg))
     return _to_device(params, torch.device(device))
@@ -164,15 +192,21 @@ def beta_of(params: dict) -> torch.Tensor:
 
 # ---------------------------------------------------------------- sub-networks
 def residuals(params, mcfg: AniSDFConfig, bpts, cond):
-    emb = positional_encoding(bpts, mcfg.xyz_res)
+    if mcfg.e_type == 'hash':
+        emb = hash_encode(params["resd_hash"], mcfg.hash_cfg(), bpts)
+    else:
+        emb = positional_encoding(bpts, mcfg.xyz_res)
     net = mlp_apply(params["resd"], torch.cat([emb, cond], dim=-1),
                     bf16=mcfg.bf16, bf16_act=mcfg.bf16_act)
     return torch.tanh(net) * mcfg.resd_limit
 
 
 def sdf_feat(params, mcfg: AniSDFConfig, cpts):
-    out = ssdf_apply(params["sdf"], positional_encoding(cpts, mcfg.sdf_res),
-                     bf16=mcfg.bf16, bf16_act=mcfg.bf16_act)
+    if mcfg.e_type == 'hash':
+        emb = hash_encode(params["sdf_hash"], mcfg.hash_cfg(), cpts)
+    else:
+        emb = positional_encoding(cpts, mcfg.sdf_res)
+    out = ssdf_apply(params["sdf"], emb, bf16=mcfg.bf16, bf16_act=mcfg.bf16_act)
     return out[..., :1], out[..., 1:]
 
 
@@ -207,13 +241,37 @@ def condition_vector(ctx: dict) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- LBS warping
-def _hdq_knn_stage(mcfg: AniSDFConfig, ctx: dict, ppts: torch.Tensor, th: float):
-    """Exact top-3 KNN + signed point-cloud distance + geodesic filter.
+def _knn_ids(mcfg: AniSDFConfig, pts: torch.Tensor, verts: torch.Tensor, K: int):
+    """(P, K) int64 neighbour ids of ``pts`` in ``verts`` by the selection
+    ``mcfg`` names: the bfloat16 selection under 'xla', else the exact top
+    K (K1's first K columns for K <= 3)."""
+    if mcfg.knn_xla:
+        return knn_select(pts, verts, K)
+    if K <= 3:
+        return knn_top3(pts, verts)[1][:, :K].long()
+    return knn_topk(pts, verts, K)[1].long()
+
+
+def _hdq_knn_stage(mcfg: AniSDFConfig, ctx: dict, ppts: torch.Tensor, th: float,
+                   verts_sub: bool = False):
+    """KNN of ``sample_vert_cnt`` neighbours + signed point-cloud distance +
+    geodesic filter (``relightableavatar_tpu/models/anisdf.py:243-307``).
+    ``verts_sub`` queries the vertex subsample ``ctx['knn_sub_ids']``
+    (``tpu.shadow_verts_sub``) and maps the hits back to global ids, so the
+    gathers below are unchanged; else 'grouped' takes the two-level KNN.
 
     Returns d2 (P, K), nn (P, K) int64, sdf_k (P, K), mask (P,),
     smpl_sdf (P, 1), bw_k (P, K, J)."""
-    _, nn = knn_top3(ppts, ctx["pverts"])
-    nn = nn.long()
+    K = mcfg.sample_vert_cnt
+    if verts_sub:
+        sub = ctx["knn_sub_ids"].long()
+        nn = sub[_knn_ids(mcfg, ppts, ctx["pverts"][sub], K)]
+    elif mcfg.knn_grouped:
+        _, nn = knn_grouped(ppts, ctx["knn_gverts"], ctx["knn_gcent"],
+                            ctx["knn_gradius"], ctx["knn_gvid"], K=K)
+        nn = nn.long()
+    else:
+        nn = _knn_ids(mcfg, ppts, ctx["pverts"], K)
 
     tbl = ctx["knn_table"][nn]                      # (P, K, 9 + J)
     nverts = tbl[..., 0:3]
@@ -266,14 +324,14 @@ def _hdq_warp_stage(mcfg: AniSDFConfig, ctx: dict, ppts, d2, bw_k):
 
 def world_to_bigpose(mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
                      v: torch.Tensor | None = None, dist_th: float | None = None,
-                     filtering: bool = True) -> dotdict:
+                     filtering: bool = True, verts_sub: bool = False) -> dotdict:
     """x (P, 3) world points -> bigpose points, blended transforms, the band
     ``mask`` (d2min < dist_th^2) and the SMPL fallback sdf, for all P."""
     th = dist_th if dist_th is not None else mcfg.dist_th
     if not filtering:
         th = 1e9
     ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
-    d2, nn, sdf_k, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th)
+    d2, nn, sdf_k, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th, verts_sub)
     tpts, bpts, A_bw, R_inv, big_A_bw, big_R_inv = _hdq_warp_stage(
         mcfg, ctx, ppts, d2, bw_k)
 
@@ -291,50 +349,124 @@ def world_to_bigpose(mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
     return ret
 
 
-def world_to_bigpose_transform(mcfg: AniSDFConfig, ctx: dict,
-                               x: torch.Tensor) -> torch.Tensor:
-    """Composed per-point world -> bigpose 4x4 (base_network.py:338-358),
-    forward direction (x in world space)."""
-    out = world_to_bigpose(mcfg, ctx, x, filtering=False)
-    P = out.A_bw.shape[0]
+def world_to_bigpose_transform(mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
+                               backward: bool = False) -> torch.Tensor:
+    """Composed per-point world -> bigpose 4x4 (base_network.py:338-358).
+    Forward, x is in world space; ``backward``, x is in canonical space and
+    the blend weights come from its exact K nearest canonical vertices
+    (``ops/knn.py:knn`` against ``tverts``)."""
+    if backward:
+        d2, nn = knn(x, ctx["tverts"], K=mcfg.sample_vert_cnt)
+        bw_k = ctx["weights"][nn.long()]
+        w = torch.exp(-d2 / (2 * mcfg.blend_radius ** 2))
+        w = w / (torch.sum(w, dim=-1, keepdim=True) + torch.finfo(w.dtype).eps)
+        bw = torch.sum(w[..., None] * bw_k, dim=-2)
+        A_bw = lbs.blend_transform(bw, ctx["A"])
+        big_A_bw = lbs.blend_transform(bw, ctx["big_A"])
+    else:
+        out = world_to_bigpose(mcfg, ctx, x, filtering=False)
+        A_bw, big_A_bw = out.A_bw, out.big_A_bw
+    P = A_bw.shape[0]
     p2w = torch.eye(4, dtype=x.dtype, device=x.device)
     p2w[:3, :3] = ctx["R"]
     p2w[:3, 3] = ctx["Th"].reshape(3)
     w2p = lbs.affine_inverse(p2w).expand(P, 4, 4)
-    p2t = lbs.affine_inverse(out.A_bw)
-    return out.big_A_bw @ p2t @ w2p
+    p2t = lbs.affine_inverse(A_bw)
+    return big_A_bw @ p2t @ w2p
+
+
+def bigpose_to_world_transform(mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor) -> torch.Tensor:
+    """Per-point bigpose -> world 4x4 at canonical points ``x``."""
+    return lbs.affine_inverse(world_to_bigpose_transform(mcfg, ctx, x, backward=True))
 
 
 # ---------------------------------------------------------------- HDQ SDF
 def hdq_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
-            smooth_transition: bool = True,
-            dist_th: float | None = None) -> torch.Tensor:
+            smooth_transition: bool = True, dist_th: float | None = None,
+            hierarchical: bool = True, skip_resd: bool = False,
+            compact: int = 0, verts_sub: bool = False) -> torch.Tensor:
     """World-space hierarchical distance query (base_network.py:365-387):
     (P, 1) signed distance, the network SDF inside the SMPL band blended
     toward the SMPL point-cloud distance, which is used outside it.
 
     Only the points inside the band go through the warp and the MLPs, as
     the reference's ``batch_aware_indexing`` does; the JAX package computes
-    every point and discards the rest with a mask, so the outputs agree."""
+    every point and discards the rest with a mask, so the outputs agree.
+    The options (``relightableavatar_tpu/models/anisdf.py:395-442``):
+    ``hierarchical=False`` is the 'world' ablation, the network SDF at every
+    point with no band (no SMPL fallback); ``skip_resd`` drops the residual
+    MLP (``tpu.shadow_skip_resd``); ``compact`` = M > 0 sends only the M
+    points closest to the body through the network
+    (:func:`_hdq_sdf_compact`, ``tpu.shadow_compact``); ``verts_sub``
+    queries the vertex subsample (``tpu.shadow_verts_sub``)."""
     th = dist_th if dist_th is not None else mcfg.dist_th
+    if 0 < compact < x.shape[0] and hierarchical:
+        return _hdq_sdf_compact(params, mcfg, ctx, x, smooth_transition, th,
+                                skip_resd, compact)
     ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
-    d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th)
+    d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(
+        mcfg, ctx, ppts, th if hierarchical else 1e9, verts_sub)
     sel = torch.nonzero(mask).squeeze(1)
-    _, bpts, *_ = _hdq_warp_stage(mcfg, ctx, ppts[sel], d2[sel], bw_k[sel])
-    cond = condition_vector(ctx)[None, :].expand(bpts.shape[0], mcfg.cond_dim)
-    resd = residuals(params, mcfg, bpts, cond)
+    net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+    if not hierarchical:
+        return net_sdf
+    return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
+
+
+def _band_sdf(params, mcfg: AniSDFConfig, ctx: dict, ppts, d2, bw_k, skip_resd: bool):
+    """The network (or, under ``smpl_distance``, the canonical SMPL mesh's)
+    SDF at pose-space points whose KNN stage gave ``d2`` and ``bw_k``."""
+    _, bpts, *_ = _hdq_warp_stage(mcfg, ctx, ppts, d2, bw_k)
+    if skip_resd:
+        cpts = bpts
+    else:
+        cond = condition_vector(ctx)[None, :].expand(bpts.shape[0], mcfg.cond_dim)
+        cpts = bpts + residuals(params, mcfg, bpts, cond)
     if mcfg.smpl_distance:
         # the exact canonical-SMPL mesh SDF instead of the network's
         # (base_network.py:417-427; the BVH becomes a blocked closest-point
         # scan, ops/point_mesh.py)
-        net_sdf = signed_mesh_distance(bpts + resd, ctx["tverts"], ctx["faces"])[:, None]
-    else:
-        net_sdf, _ = sdf_feat(params, mcfg, bpts + resd)
-    smpl_in = smpl_sdf[sel]
+        return signed_mesh_distance(cpts, ctx["tverts"], ctx["faces"])[:, None]
+    return sdf_feat(params, mcfg, cpts)[0]
+
+
+def _blend(smpl_sdf, sel, net_sdf, th: float, smooth_transition: bool):
+    """The SMPL fallback with rows ``sel`` replaced by the network SDF,
+    blended toward the fallback by |sdf| / th under ``smooth_transition``."""
     if smooth_transition:
         r = torch.clamp(torch.abs(net_sdf) / th, 0.0, 1.0)
-        net_sdf = smpl_in * r + net_sdf * (1 - r)
+        net_sdf = smpl_sdf[sel] * r + net_sdf * (1 - r)
     return smpl_sdf.index_copy(0, sel, net_sdf)
+
+
+def _hdq_sdf_compact(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
+                     smooth_transition: bool, th: float, skip_resd: bool,
+                     M: int) -> torch.Tensor:
+    """Compacted HDQ (``relightableavatar_tpu/models/anisdf.py:445-482``):
+    the KNN runs on all P points (on the full cloud, whatever
+    ``verts_sub``, as JAX's), then only the M points of smallest nearest
+    distance (a stable argsort) are candidates for the network; the rest
+    keep the SMPL point-cloud fallback.  Of the M, those outside the band
+    keep it too (JAX masks them after the MLPs), so only the band's go
+    through the warp and the MLPs."""
+    ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
+    d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th)
+    order = torch.argsort(d2[:, 0], stable=True)[:M]
+    sel = order[mask[order]]
+    net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+    return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
+
+
+def canonical_sdf(params, mcfg: AniSDFConfig, x: torch.Tensor) -> torch.Tensor:
+    """The SDF MLP at canonical points."""
+    return sdf_feat(params, mcfg, x)[0]
+
+
+def observed_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor) -> torch.Tensor:
+    """The SDF at bigpose points: residual, then the canonical SDF
+    (base_network.py:389-449)."""
+    cond = condition_vector(ctx)[None, :].expand(x.shape[0], mcfg.cond_dim)
+    return canonical_sdf(params, mcfg, x + residuals(params, mcfg, x, cond))
 
 
 # ---------------------------------------------------------------- full forward

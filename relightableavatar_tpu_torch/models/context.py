@@ -3,7 +3,11 @@
 Built on the host in numpy (SMPL-H forward, vertex normals, bounds), then
 moved to ``device`` as a dict of tensors that every render function takes.
 The fused ``knn_table = [pverts | pnorm | tverts | weights]`` (6890, 9 + J)
-lets the HDQ gather all neighbour attributes in one indexing op.
+lets the HDQ gather all neighbour attributes in one indexing op.  The
+grouped KNN's arrays (``knn_gvid``, ``knn_gverts``, ``knn_gcent``,
+``knn_gradius``: a balanced k-d partition of the posed vertices) and the
+shadow rays' vertex subsample ``knn_sub_ids`` are built with them, as the
+JAX package builds them (``relightableavatar_tpu/models/context.py:39-58``).
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ import numpy as np
 import torch
 
 from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.ops.knn import (build_vertex_groups, group_frame_arrays,
+                                                 subsample_verts)
 from relightableavatar_tpu_torch.smpl.body_model import (
     BodyModel, batch_rodrigues, get_bounds, get_rigid_transform, vertex_normals)
 
@@ -26,7 +32,17 @@ def _assemble_context(wverts: np.ndarray, pverts: np.ndarray, tverts: np.ndarray
     tverts = tverts.astype(np.float32)
     pnorm = vertex_normals(pverts, faces)
     tnorm = vertex_normals(tverts, faces)
+    # tpu.knn_impl='grouped': k-d leaves of the posed vertices (partitioned
+    # in query space, so the leaves stay compact); tpu.shadow_verts_sub:
+    # every 4th member of each leaf, as global ids
+    gvid, gmask = build_vertex_groups(pverts)
+    gverts, gcent, gradius = group_frame_arrays(pverts, gvid, gmask)
     arrays = {
+        "knn_gvid": gvid,
+        "knn_gverts": gverts,
+        "knn_gcent": gcent,
+        "knn_gradius": gradius,
+        "knn_sub_ids": subsample_verts(gvid, gmask, 4),
         "knn_table": np.concatenate(
             [pverts, pnorm.astype(np.float32), tverts, W.astype(np.float32)],
             axis=-1),

@@ -82,13 +82,12 @@ def build_sdf_grid(sdf_fn, lo: torch.Tensor, hi: torch.Tensor, res,
 def build_hdq_grid(params, mcfg, ctx, lo, hi, res, dist_th: float | None = None,
                    packed: bool = False, verts_sub: bool = False) -> torch.Tensor:
     """Per-frame bake of the HDQ world SDF; ``packed=True`` returns the
-    cell-corner table."""
-    if verts_sub:
-        raise NotImplementedError(
-            "build_hdq_grid(verts_sub=True) (tpu.shadow_verts_sub) is not ported")
+    cell-corner table.  ``verts_sub`` bakes with the KNN against the vertex
+    subsample (``tpu.shadow_verts_sub``: the grid feeds only shadow
+    visibility and the camera trace's lower bounds)."""
     from relightableavatar_tpu_torch.models import anisdf
     hdq = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True,
-                                   dist_th=dist_th)
+                                   dist_th=dist_th, verts_sub=verts_sub)
     grid = build_sdf_grid(hdq, lo, hi, res)
     return pack_grid_corners(grid) if packed else grid
 

@@ -122,10 +122,11 @@ class SphereTracingRenderer:
         return self._grid_res
 
     def bake_grid(self, ctx, gbox: torch.Tensor, packed: bool) -> torch.Tensor:
-        """The frame's HDQ SDF on the grid (raw, or the packed corner table)."""
+        """The frame's HDQ SDF on the grid (raw, or the packed corner table),
+        against the vertex subsample under ``tpu.shadow_verts_sub``."""
         return build_hdq_grid(self.params, self.mcfg, ctx, gbox[0], gbox[1],
                               self.grid_resolution(gbox), self.st_obj.dist_th,
-                              packed=packed)
+                              packed=packed, verts_sub=self.rcfg.shadow_verts_sub)
 
     def sweep_dirs(self) -> np.ndarray:
         """The sweep's directions: the coarse light grid that
@@ -220,6 +221,10 @@ class SphereTracingRenderer:
             t0 = self._stage('bake', t0)
             if rcfg.lvis_sweep:
                 lvis_volume = self.sweep_volume(shadow_sdf_grid, gbox)
+                if rcfg.surf_grid_iters > 0:
+                    # every ray block's pre-march reads the lower bound: pack
+                    # the corners once here, not in each lookup
+                    shadow_sdf_grid = pack_grid_corners(shadow_sdf_grid)
                 t0 = self._stage('sweep', t0)
 
         # frame-global miss skip: the rays proven to be clean misses by one
@@ -231,8 +236,8 @@ class SphereTracingRenderer:
         n_active = len(ray_o)
         block_rcfg = rcfg
         if (rcfg.surf_miss_skip and shadow_sdf_grid is not None
-                and not rcfg.want_light_maps and not rcfg.check_bound_sdf
-                and not rcfg.check_termination_sdf):
+                and rcfg.ablate_mode == 'hdq' and not rcfg.want_light_maps
+                and not rcfg.check_bound_sdf and not rcfg.check_termination_sdf):
             miss = self.miss_march(shadow_sdf_grid, gbox, put(ray_o), put(ray_d),
                                    put(near), put(far)).cpu().numpy()
             order = np.argsort(miss, kind='stable')          # active rays first

@@ -6,9 +6,13 @@ DFSS shadow rays toward every light texel -> GGX shading -> sRGB.
 
 Inference, on the exact path or with the acceleration stack: shadow rays
 on a baked SDF grid (``tpu.shadow_grid``), the slice-sweep visibility
-volume (``tpu.lvis_sweep``) and the camera trace's exact miss skip
-(``tpu.surf_miss_skip``); and the stage-2 training render, with the graph
-to the parameters.  The options not ported raise in
+volume (``tpu.lvis_sweep``), the camera trace's exact miss skip
+(``tpu.surf_miss_skip``) or its pre-march on the grid's lower bound
+(``tpu.surf_grid_iters``, ``tpu.surf_exact_iters``), the shadow HDQ's
+options (``tpu.shadow_skip_resd``, ``tpu.shadow_compact``,
+``tpu.shadow_verts_sub``) and the HDQ ablations (``ablate_hdq_mode``
+'world', 'can', 'curve'); and the stage-2 training render, with the graph
+to the parameters.  ``tpu.frame_fuse`` raises in
 :meth:`RelightRenderConfig.from_cfg`.
 """
 from __future__ import annotations
@@ -39,10 +43,8 @@ from relightableavatar_tpu_torch.utils.dotdict import dotdict
 # turning one on raises instead of being ignored (tpu.volume_cull is the
 # volume renderer's, renderer/volume.py, and this path ignores it as the
 # JAX package's does)
-_UNPORTED_TPU = {
-    'surf_grid_iters': 0, 'shadow_compact': 0.0, 'shadow_skip_resd': False,
-    'shadow_verts_sub': 1, 'frame_fuse': False,
-}
+_UNPORTED_TPU = {'frame_fuse': False}
+ABLATE_MODES = ('hdq', 'world', 'can', 'curve')
 
 
 class RelightRenderConfig(NamedTuple):
@@ -65,18 +67,24 @@ class RelightRenderConfig(NamedTuple):
     bbox_margin: float = 0.25
     shadow_block: int = 32768
     shadow_grid: int = 0              # SDF voxel grid for shadow rays (0 = exact HDQ)
+    surf_grid_iters: int = 0          # conservative pre-march iterations on the grid
+    surf_exact_iters: int = 0         # exact trace iterations after it (0 = st.iter)
     surf_miss_skip: bool = False      # exact miss skip of the camera trace
     surf_skip_iters: int = 32         # lower-bound march iterations of the skip
     surf_skip_margin: float = 0.01    # safety margin m0 of the skip march (m)
     lvis_sweep: bool = False          # slice-sweep DFSS volume instead of shadow rays
     lvis_query_offset: float = 0.5    # sweep lookup offset along the normal (voxels)
     grid_margin: float = 0.05         # box pad of the SDF grid
+    shadow_skip_resd: bool = False    # shadow HDQ without the residual MLP
+    shadow_compact: float = 0.0       # share of a shadow block through the MLPs (0 = all)
+    shadow_verts_sub: bool = False    # shadow HDQ and bake against the vertex subsample
     lvis_downscale: int = 1           # trace visibility on an (eH/k, eW/k) light grid
     distant_envmap: bool = False      # light[l] = probe texel l (skip per-dir sampling)
     want_light_maps: bool = False     # keep (P, L) lvis/ldot maps
     want_spec_map: bool = True
     vis_lvis_map: bool = False
     vis_ldot_map: bool = False
+    ablate_mode: str = 'hdq'          # 'hdq' | 'world' | 'can' | 'curve'
     check_bound_sdf: bool = False     # debug: colormap |sdf| at termination, early exit
     check_termination_sdf: bool = False  # debug: |sdf| statistics at hit points
 
@@ -87,9 +95,8 @@ class RelightRenderConfig(NamedTuple):
                 raise NotImplementedError(
                     f"tpu.{key}={cfg.tpu[key]!r} is not ported; only the exact "
                     f"path runs (set it to {off!r})")
-        if cfg.ablate_hdq_mode != 'hdq':
-            raise NotImplementedError(
-                f"ablate_hdq_mode={cfg.ablate_hdq_mode!r}: only 'hdq' is ported")
+        if cfg.ablate_hdq_mode not in ABLATE_MODES:
+            raise ValueError(f"ablate_hdq_mode={cfg.ablate_hdq_mode!r}: one of {ABLATE_MODES}")
         return cls(
             n_samples=int(cfg.n_samples),
             surf_sample_range=float(cfg.surf_sample_range),
@@ -108,17 +115,23 @@ class RelightRenderConfig(NamedTuple):
             bbox_margin=float(cfg.env_lvis.bbox_margin),
             shadow_block=min(int(cfg.network_chunk_size), 32768),
             shadow_grid=int(cfg.tpu.shadow_grid),
+            surf_grid_iters=int(cfg.tpu.surf_grid_iters),
+            surf_exact_iters=int(cfg.tpu.surf_exact_iters),
             surf_miss_skip=bool(cfg.tpu.surf_miss_skip),
             surf_skip_iters=int(cfg.tpu.surf_skip_iters),
             surf_skip_margin=float(cfg.tpu.surf_skip_margin),
             lvis_sweep=bool(cfg.tpu.lvis_sweep),
             lvis_query_offset=float(cfg.tpu.lvis_query_offset),
             grid_margin=float(cfg.tpu.grid_margin),
+            shadow_skip_resd=bool(cfg.tpu.shadow_skip_resd),
+            shadow_compact=float(cfg.tpu.shadow_compact),
+            shadow_verts_sub=int(cfg.tpu.shadow_verts_sub) > 1,
             lvis_downscale=int(cfg.tpu.lvis_downscale),
             distant_envmap=bool(cfg.tpu.distant_envmap),
             want_light_maps=bool(cfg.vis_novel_light),
             vis_lvis_map=bool(cfg.vis_lvis_map),
             vis_ldot_map=bool(cfg.vis_ldot_map),
+            ablate_mode=str(cfg.ablate_hdq_mode),
             check_bound_sdf=bool(cfg.check_bound_sdf),
             check_termination_sdf=bool(cfg.check_termination_sdf),
         )
@@ -153,7 +166,11 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
     package's sorted block skip (``sphere_tracing.py:201-237``) and its
     masked trace of every ray on the SDF grid.  ``sdf_override`` replaces
     the HDQ SDF (the grid lookup; ``bbox`` is then the grid's box).
-    ``stats['shadow_rays']``, when given, adds the number of rays traced."""
+    Under ``rcfg.shadow_compact`` the rays of a block are not independent
+    (they compete for the block's M network queries), so the blocks are
+    the JAX package's: all F rays and its padding lanes, stable-sorted
+    active first, inactive lanes collapsed to near == far (:func:`_jax_blocks`).
+    ``stats['shadow_rays']``, when given, adds the number of active rays."""
     P = surf.shape[0]
     L = xyz.shape[0]
 
@@ -176,26 +193,67 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
     lbox = nb < fb                                            # (F, 1)
     active = lfrt.reshape(F, 1) & lbox
 
+    blk = min(rcfg.shadow_block, F)
+    n_compact = 0
+    if rcfg.shadow_compact > 0 and sdf_override is None:
+        # the network budget of a block, a multiple of 256 (JAX :177-187)
+        n_compact = max(256, int(blk * rcfg.shadow_compact) // 256 * 256)
     sdf_fn = sdf_override if sdf_override is not None else (
         lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, smooth_transition=True,
-                                 dist_th=lv.dist_th))
+                                 dist_th=lv.dist_th, skip_resd=rcfg.shadow_skip_resd,
+                                 compact=n_compact, verts_sub=rcfg.shadow_verts_sub))
     occ = torch.ones((F, 1), dtype=surf.dtype, device=surf.device)
     sel_all = torch.nonzero(active[:, 0]).squeeze(1)
     if stats is not None:
         stats['shadow_rays'] = stats.get('shadow_rays', 0) + sel_all.shape[0]
-    blk = min(rcfg.shadow_block, F)
-    for s in range(0, sel_all.shape[0], blk):
-        sel = sel_all[s:s + blk]
-        _, _, o, _, _ = sphere_trace(sdf_fn, ray_o[sel], ray_d[sel], nb[sel],
-                                     fb[sel], lv, tan_i=tan_i[sel],
-                                     soft_shadow=soft_shadow)
-        occ[sel] = o
+    if n_compact:
+        ro, rd, nr, fr, ti, order = _jax_blocks(ray_o, ray_d, nb, fb, tan_i, lbox, active,
+                                                blk, lv.near_offset, rcfg.env_r)
+        occ_p = torch.ones_like(nr)
+        for s in range(0, sel_all.shape[0], blk):         # blocks holding an active ray
+            b = slice(s, s + blk)
+            _, _, occ_p[b], _, _ = sphere_trace(sdf_fn, ro[b], rd[b], nr[b], fr[b], lv,
+                                                tan_i=ti[b], soft_shadow=soft_shadow)
+        occ[order[order < F]] = occ_p[order < F]
+    else:
+        for s in range(0, sel_all.shape[0], blk):
+            sel = sel_all[s:s + blk]
+            _, _, o, _, _ = sphere_trace(sdf_fn, ray_o[sel], ray_d[sel], nb[sel],
+                                         fb[sel], lv, tan_i=tan_i[sel],
+                                         soft_shadow=soft_shadow)
+            occ[sel] = o
 
     # assemble per reference scatter rules (:331-343)
     lvis = occ * active
     lvis = lvis * lbox + 1.0 * (~lbox)                        # no bbox hit => lit
     lvis = lvis * lfrt.reshape(F, 1)                          # back-facing => dark
     return lvis.reshape(P, L), ldot
+
+
+def _jax_blocks(ray_o, ray_d, nb, fb, tan_i, lbox, active, blk: int,
+                near_offset: float, env_r: float):
+    """The JAX package's shadow-ray layout (``sphere_tracing.py:164-220``):
+    near/far from the bbox where the ray meets it (else near_offset /
+    env_r), far = near on inactive rays, padding lanes (origin, +z, near =
+    far = 0.1, tan_i 1) up to a multiple of ``blk``, then every lane in the
+    stable order active first.  Returns the sorted (ray_o, ray_d, near, far,
+    tan_i) and the order (indices >= F are padding)."""
+    F = ray_o.shape[0]
+    near = torch.where(lbox, nb, torch.full_like(nb, near_offset))
+    far = torch.where(lbox, fb, torch.full_like(fb, env_r))
+    far = torch.where(active, far, near)
+    pad = (-F) % blk
+    act = active[:, 0]
+    if pad:
+        z = ray_o.new_zeros((pad, 1))
+        ray_o = torch.cat([ray_o, z.expand(pad, 3)])
+        ray_d = torch.cat([ray_d, torch.cat([z, z, z + 1.0], dim=1)])
+        near = torch.cat([near, z + 0.1])
+        far = torch.cat([far, z + 0.1])
+        tan_i = torch.cat([tan_i, z + 1.0])
+        act = torch.cat([act, act.new_zeros(pad)])
+    order = torch.argsort((~act).to(torch.uint8), stable=True)
+    return ray_o[order], ray_d[order], near[order], far[order], tan_i[order], order
 
 
 # ---------------------------------------------------------------- main pass
@@ -234,6 +292,50 @@ def render_human_block(params, mcfg: AniSDFConfig, ctx,
                             shadow_sdf_grid, lvis_volume, training, jitter_noise, stats)
 
 
+def _surface_trace(params, mcfg, ctx, surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c,
+                   far_c, st_surf: STConfig, rcfg: RelightRenderConfig, training: bool):
+    """The camera trace (``relightableavatar_tpu/renderer/sphere_tracing.py:309-363``).
+    The HDQ ablations: 'world' traces the network SDF everywhere
+    (``hdq_sdf(hierarchical=False)``); 'can' and 'curve' carry each ray to
+    the bigpose space by its origin's world -> bigpose transform, trace the
+    observed SDF there and carry the hit and edge points back by their own
+    bigpose -> world transforms.  'hdq' with a grid (``lower_bound_sdf``)
+    and outside training: the miss skip, or the pre-march of
+    ``surf_grid_iters`` steps on the grid's lower bound followed by
+    ``surf_exact_iters`` exact iterations (when > 0).  Returns the tuple of
+    :func:`sphere_trace`."""
+    if rcfg.ablate_mode == 'world':
+        world_sdf = lambda x: anisdf.hdq_sdf(params, mcfg, ctx, x, hierarchical=False)
+        return sphere_trace(world_sdf, ray_o, ray_d, near_c, far_c, st_surf,
+                            soft_shadow=False)
+    if rcfg.ablate_mode in ('can', 'curve'):
+        obs_sdf = lambda x: anisdf.observed_sdf(params, mcfg, ctx, x)
+        w2b = anisdf.world_to_bigpose_transform(mcfg, ctx, ray_o)
+        ro_c = torch.einsum('pab,pb->pa', w2b[:, :3, :3], ray_o) + w2b[:, :3, 3]
+        rd_c = normalize(torch.einsum('pab,pb->pa', w2b[:, :3, :3], ray_d))
+        surf_c, edge_c, occ, st_t, ot_t = sphere_trace(obs_sdf, ro_c, rd_c, near_c, far_c,
+                                                       st_surf, soft_shadow=False)
+        back = []
+        for pts in (surf_c, edge_c):
+            b2w = anisdf.bigpose_to_world_transform(mcfg, ctx, pts)
+            back.append(torch.einsum('pab,pb->pa', b2w[:, :3, :3], pts) + b2w[:, :3, 3])
+        return back[0], back[1], occ, st_t, ot_t
+    if rcfg.surf_miss_skip and lower_bound_sdf is not None and not training:
+        # the full st_surf budget from each ray's own near: the reduced
+        # surf_exact_iters is sound only after the pre-march it banks
+        return sphere_trace_miss_skip(surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c,
+                                      far_c, st_surf, skip_iter=rcfg.surf_skip_iters,
+                                      margin=rcfg.surf_skip_margin)
+    # training is excluded: a clean miss would pre-march to far instead of
+    # its closest approach, where the differentiable acc reads the edge SDF
+    pre = lower_bound_sdf if rcfg.surf_grid_iters > 0 and not training else None
+    st_cam = st_surf
+    if pre is not None and rcfg.surf_exact_iters > 0:
+        st_cam = st_surf._replace(iter=rcfg.surf_exact_iters)
+    return sphere_trace(surf_sdf, ray_o, ray_d, near_c, far_c, st_cam, soft_shadow=False,
+                        premarch_sdf_fn=pre, premarch_iter=rcfg.surf_grid_iters)
+
+
 def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light_xyz,
                  light_area, light_sharp, st_surf, st_obj, rcfg, shadow_sdf_grid,
                  lvis_volume, training, jitter_noise, stats) -> dotdict:
@@ -259,13 +361,10 @@ def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light
         lower_bound_sdf = lambda x: grid_sdf_lower_bound(grid, gbox[0], gbox[1], x)
 
     # ---- surface intersection (the tracer runs without a graph)
-    if rcfg.surf_miss_skip and lower_bound_sdf is not None and not training:
-        surf, edge, occ, st_t, ot_t = sphere_trace_miss_skip(
-            surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c, far_c, st_surf,
-            skip_iter=rcfg.surf_skip_iters, margin=rcfg.surf_skip_margin)
-    else:
-        surf, edge, occ, st_t, ot_t = sphere_trace(surf_sdf, ray_o, ray_d, near_c,
-                                                   far_c, st_surf, soft_shadow=False)
+    with torch.no_grad():
+        surf, edge, occ, st_t, ot_t = _surface_trace(
+            params, mcfg, ctx, surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c,
+            far_c, st_surf, rcfg, training)
     depth = (surf[:, 0] - ray_o[:, 0]) / ray_d[:, 0]
     acc = 1.0 - occ[:, 0]
     if training:

@@ -4,8 +4,9 @@ reference ``lib/networks/renderer/sphere_tracing_renderer.py:107-262``).
 The fixed-iteration signed tracer with relax + offset stepping, sign-flip
 surface refinement, closest-distance tracking, Claybook banding removal and
 the DFSS cone occlusion ``d / (2 t tan)``; a Python loop over iterations.
-Also the camera trace's exact miss skip (:func:`sphere_trace_miss_skip`),
-which first marches every ray on a conservative SDF lower bound.
+Also the camera trace's conservative pre-march (``premarch_sdf_fn``) and
+exact miss skip (:func:`sphere_trace_miss_skip`), which both march on a
+conservative SDF lower bound.
 """
 from __future__ import annotations
 
@@ -46,11 +47,20 @@ def sphere_trace(sdf_fn: Callable[[torch.Tensor], torch.Tensor],
                  ray_o: torch.Tensor, ray_d: torch.Tensor,
                  near: torch.Tensor, far: torch.Tensor, st: STConfig,
                  tan_i: torch.Tensor | float | None = None,
-                 soft_shadow: bool = False):
+                 soft_shadow: bool = False,
+                 premarch_sdf_fn: Callable | None = None,
+                 premarch_iter: int = 0):
     """Trace P rays against a world-space SDF.
 
     ray_o/ray_d (P, 3); near/far (P,) or (P, 1); tan_i per-ray sharpness for
     soft shadows.  Returns (surf, edge, occ, st_t, ot_t): (P, 3) x2, (P, 1) x3.
+
+    ``premarch_sdf_fn``/``premarch_iter`` (``tpu.surf_grid_iters``): first
+    advance ``t`` by ``premarch_iter`` steps of ``max(lb, 0)`` on a
+    conservative lower bound ``lb`` of the SDF (``grid_sdf_lower_bound``),
+    which never crosses a true surface, clamped to [near, far]; the trace
+    then starts there with a fresh state
+    (``relightableavatar_tpu/renderer/tracing.py:95-105``).
     """
     P = ray_o.shape[0]
     ones = torch.ones((P, 1), dtype=ray_o.dtype, device=ray_o.device)
@@ -68,6 +78,10 @@ def sphere_trace(sdf_fn: Callable[[torch.Tensor], torch.Tensor],
     eps = st.eps
 
     t = near
+    if premarch_sdf_fn is not None:
+        for _ in range(premarch_iter):
+            d = premarch_sdf_fn(ray_o + t * ray_d)
+            t = torch.minimum(torch.maximum(t + torch.clamp(d, min=0.0), near), far)
     d0 = ones * 1e9
     occ = ones
     st_t = far

@@ -39,16 +39,25 @@ def _wn_shapes(prefix, d_in, d_out):
 
 def param_shapes(mcfg: AniSDFConfig) -> dict:
     """Flat key -> shape of every parameter of the network ``mcfg`` names
-    (the layout of ``relightableavatar_tpu/models/anisdf.py:init_anisdf``)."""
-    shapes = _mlp_shapes("resd", embed_dim(3, mcfg.xyz_res) + mcfg.cond_dim,
-                         256, 8, 3)
+    (the layout of ``relightableavatar_tpu/models/anisdf.py:init_anisdf``;
+    under ``e_type='hash'`` the encoders' flat (L, T*F) tables ``resd_hash``
+    and ``sdf_hash``)."""
+    if mcfg.e_type == 'hash':
+        hcfg = mcfg.hash_cfg()
+        resd_in = sdf_in = hcfg.out_dim
+    else:
+        resd_in = embed_dim(3, mcfg.xyz_res)
+        sdf_in = embed_dim(3, mcfg.sdf_res)
+    shapes = _mlp_shapes("resd", resd_in + mcfg.cond_dim, 256, 8, 3)
     # SphereSignedDistanceField: the layer before the skip emits W - d_in
-    sdf_in = embed_dim(3, mcfg.sdf_res)
     dims = [sdf_in] + [256] * 8 + [1 + mcfg.feat_dim]
     for i in range(len(dims) - 1):
         d_out = dims[i + 1] - dims[0] if i + 1 == 4 else dims[i + 1]
         shapes.update(_wn_shapes(f"sdf/layers/{i}", dims[i], d_out))
     shapes["beta"] = ()
+    if mcfg.e_type == 'hash':
+        for key in ("resd_hash", "sdf_hash"):
+            shapes[key] = (hcfg.n_levels, hcfg.table_size * hcfg.n_features)
     rgb_in = 3 + mcfg.feat_dim + embed_dim(3, mcfg.view_res)
     for i, (d_in, d_out) in enumerate([(rgb_in, 256), (256, 256), (256, 256),
                                        (256 + mcfg.cond_dim, 256), (256, 3)]):

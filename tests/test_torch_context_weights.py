@@ -42,7 +42,8 @@ def flat():
 
 
 CTX_KEYS = ["knn_table", "R", "Th", "poses", "A", "big_A", "weights", "pverts",
-            "pnorm", "tverts", "tnorm", "faces", "wbounds", "tbounds", "pbounds"]
+            "pnorm", "tverts", "tnorm", "faces", "wbounds", "tbounds", "pbounds",
+            "knn_gvid", "knn_gverts", "knn_gcent", "knn_gradius", "knn_sub_ids"]
 
 
 @pytest.mark.parametrize("key", CTX_KEYS)

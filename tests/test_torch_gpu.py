@@ -1,7 +1,9 @@
 """Tests that need a CUDA device: the Hopper top-3 KNN kernel against its
 plain version on the card, the relight render on the card, the slice sweep
 and the bfloat16 MLP route on the card against the CPU, the bench-stack
-golden, the bfloat16 weight gradient, the stage-1 train step, the
+golden, the bfloat16 weight gradient, K1 on the shadow rays' vertex
+subsample, the grouped and bfloat16 KNN routes, the hash encoding, the
+stage-1 train step, the
 stage-2 bf16 step's gradients, the novel-light sweep, the ground frame, the volume frame,
 ``run -t evaluate`` and the mesh extraction on the card against the CPU, and
 the kernel on a chunk of the 5 mm mesh grid.  They skip with a reason where torch finds no CUDA device; on the
@@ -15,7 +17,7 @@ from relightableavatar_tpu_torch.data import make_synthetic
 from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.eval.evaluator import Evaluator
 from relightableavatar_tpu_torch.run import run_evaluate
-from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases
+from relightableavatar_tpu_torch.eval.knn_cases import KNN_CASE_NAMES, knn_cases, synthetic_points
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.data.datasets import make_dataset
 from relightableavatar_tpu_torch.eval import mesh_check
@@ -70,6 +72,60 @@ def test_kernel_ragged_vertex_count_and_ties(scene):
     d2, idx = knn_cuda.knn_top3_cuda(pts, vdup)
     rd2, ridx = knn_top3_reference(pts, vdup)
     assert torch.equal(d2, rd2) and torch.equal(idx, ridx)
+
+
+def test_kernel_on_the_subsample_cloud(scene):
+    """K1 against the 2,048-vertex subsample of ``tpu.shadow_verts_sub`` at a
+    shadow block's 32,768 points, bit for bit the plain version."""
+    _, ctx, _, _ = scene
+    sub = ctx["pverts"][ctx["knn_sub_ids"].long()].contiguous()
+    assert sub.shape == (2048, 3)
+    pts = synthetic_points(sub, 32768, np.random.default_rng(3))
+    d2, idx = knn_cuda.knn_top3_cuda(pts, sub)
+    rd2, ridx = knn_top3_reference(pts, sub)
+    assert torch.equal(d2, rd2) and torch.equal(idx, ridx)
+
+
+def test_grouped_and_select_on_the_card_equal_the_cpu(scene):
+    """``knn_grouped`` and ``knn_select`` on the card against the CPU on
+    8,192 points around the posed vertices: the same indices (the bfloat16
+    matrix rounds after each op on both, and the sort is stable); the
+    grouped d2, a sum of three squares that the HDQ does not read, within
+    1e-6 relative (the card sums in another order)."""
+    _, ctx, _, _ = scene
+    pts = synthetic_points(ctx["pverts"], 8192, np.random.default_rng(4))
+    keys = ("knn_gverts", "knn_gcent", "knn_gradius", "knn_gvid")
+    d2, idx = knn_mod.knn_grouped(pts, *[ctx[k] for k in keys])
+    cd2, cidx = knn_mod.knn_grouped(pts.cpu(), *[ctx[k].cpu() for k in keys])
+    assert torch.equal(idx.cpu(), cidx)
+    torch.testing.assert_close(d2.cpu(), cd2, rtol=1e-6, atol=0)
+    sel = knn_mod.knn_select(pts, ctx["pverts"])
+    assert torch.equal(sel.cpu(), knn_mod.knn_select(pts.cpu(), ctx["pverts"].cpu()))
+
+
+def test_hash_encode_on_the_card_equals_the_cpu(cuda):
+    """``hash_encode`` of the model's grid (``AniSDFConfig.hash_cfg``) on the
+    card against the CPU: the forward within 1e-6; the table's gradient, a
+    scatter-add with atomics whose float32 order varies, within 1e-5 of its
+    largest entry."""
+    from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
+    from relightableavatar_tpu_torch.ops.hashgrid import hash_encode, hash_encoding_init
+    hcfg = AniSDFConfig(e_type='hash').hash_cfg()
+    table = hash_encoding_init(torch.Generator().manual_seed(0), hcfg)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((65536, 3), generator=gen) * 4.4 - 2.2
+    w = torch.randn((65536, hcfg.out_dim), generator=gen)
+    outs, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        t = table.to(dev).requires_grad_(True)
+        out = hash_encode(t, hcfg, x.to(dev))
+        (out * w.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append(t.grad.cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-6)
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-5 * scale)
 
 
 def test_golden_bundle_on_the_card(scene):

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from jax_fixture_scene import few_torch_threads, jax_cfg, jax_scene  # noqa: F401 (fixture)
+from test_torch_mesh import exact_knn
+from test_torch_options import jax_selection
 from relightableavatar_tpu.ops import lvis_sweep as j_sweep
 from relightableavatar_tpu.ops import sdf_grid as j_grid
 from relightableavatar_tpu.ops.envmap import gen_light_xyz as j_gen_light_xyz
@@ -122,8 +124,26 @@ def test_build_hdq_grid_matches_jax(fixture_pair, res):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
     packed = t_grid.build_hdq_grid(params, mcfg, ctx, lo, hi, res, 0.125, packed=True)
     assert torch.equal(packed, t_grid.pack_grid_corners(got))
-    with pytest.raises(NotImplementedError):
-        t_grid.build_hdq_grid(params, mcfg, ctx, lo, hi, res, 0.125, verts_sub=True)
+
+
+@pytest.mark.parametrize("res", [(9, 6, 5), (5, 4, 9)])
+def test_build_hdq_grid_verts_sub_matches_jax(fixture_pair, res):
+    """The bake against the 2,048-vertex subsample (``tpu.shadow_verts_sub``):
+    JAX's subsample selection (its bfloat16 ``knn_select``) made the exact
+    one, the port's K1 on the subsample (``test_torch_options.py``), 1e-5
+    as the full bake."""
+    (jparams, jmcfg, jctx), (params, mcfg, ctx) = fixture_pair
+    wb = ctx["wbounds"]
+    lo, hi = wb[0] - 0.05, wb[1] + 0.05
+    with jax_selection(lambda p, v, K=3: exact_knn(p, v, K)[1]):
+        with jax.default_matmul_precision('highest'):
+            ref = np.asarray(j_grid.build_hdq_grid(
+                jparams, jmcfg, jctx, jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()), res,
+                0.125, verts_sub=True))
+    got = t_grid.build_hdq_grid(params, mcfg, ctx, lo, hi, res, 0.125, verts_sub=True)
+    full = t_grid.build_hdq_grid(params, mcfg, ctx, lo, hi, res, 0.125)
+    assert got.shape == res and torch.isfinite(got).all() and not torch.equal(got, full)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------- sweep

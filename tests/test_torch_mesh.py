@@ -206,8 +206,14 @@ def test_knn_chunks_and_refuses_more_than_three(monkeypatch):
     chunked = pknn.knn(pts, verts, K=2)
     assert torch.equal(chunked[0], whole[0][:, :2]) and torch.equal(chunked[1], whole[1][:, :2])
     assert pknn.knn(pts[:0], verts, K=1)[0].shape == (0, 1)
-    with pytest.raises(ValueError, match="top-3"):
-        pknn.knn(pts, verts, K=4)
+    # K > 3 (sample_vert_cnt) is the exact plain top K, chunked the same way;
+    # fewer than one neighbour is refused
+    four = pknn.knn(pts, verts, K=4)
+    monkeypatch.setattr(pknn, "CHUNK", 1 << 20)
+    assert torch.equal(four[1], pknn.knn(pts, verts, K=4)[1])
+    assert torch.equal(four[1][:, :3], whole[1]) and torch.equal(four[0][:, :3], whole[0])
+    with pytest.raises(ValueError, match="at least one"):
+        pknn.knn(pts, verts, K=0)
 
 
 # ------------------------------------------------------------ dataset

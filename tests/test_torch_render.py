@@ -24,6 +24,7 @@ from relightableavatar_tpu.renderer.sphere_tracing import (
 from relightableavatar_tpu.renderer.tracing import STConfig as JSTConfig
 from relightableavatar_tpu.smpl.body_model import BodyModel
 from relightableavatar_tpu_torch.eval import golden
+from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.renderer.orchestrate import SphereTracingRenderer
 from relightableavatar_tpu_torch.renderer.sphere_tracing import render_human_block
@@ -162,7 +163,6 @@ def test_check_termination_sdf_reads_the_network_under_smpl_distance(fixture_sce
     SDF, but the termination statistic is the network's own |sdf| at the
     hit points, as the JAX package's (``mcfg._replace(smpl_distance=False)``,
     ``renderer/sphere_tracing.py:396-399``)."""
-    from relightableavatar_tpu_torch.models import anisdf
     _, ctx, params, mcfg = fixture_scene
     out = golden.render_golden_bundle(ctx, params, mcfg._replace(smpl_distance=True),
                                       device="cpu", rcfg_extra={'check_termination_sdf': True})
@@ -173,11 +173,7 @@ def test_check_termination_sdf_reads_the_network_under_smpl_distance(fixture_sce
     np.testing.assert_allclose(float(out.term_sdf_sum[0]), float(net.abs().sum()), rtol=1e-5)
 
 
-UNPORTED = [('tpu', 'surf_grid_iters', 8),
-            ('tpu', 'shadow_compact', 0.5), ('tpu', 'shadow_skip_resd', True),
-            ('tpu', 'shadow_verts_sub', 4), ('tpu', 'knn_impl', 'grouped'),
-            ('tpu', 'knn_impl', 'xla'), ('tpu', 'frame_fuse', True),
-            (None, 'e_type', 'hash'), (None, 'ablate_hdq_mode', 'world')]
+UNPORTED = [('tpu', 'frame_fuse', True)]
 
 
 @pytest.mark.parametrize("node,key,value", UNPORTED,
@@ -193,14 +189,23 @@ def test_unported_options_raise(fixture_scene, node, key, value):
 # options that raised before they were ported; each now builds a renderer
 # and renders a frame to finite maps (their parity with the JAX package:
 # test_torch_accel.py, test_torch_bf16.py, test_torch_frame.py,
-# test_torch_volume.py, test_torch_ground.py, test_torch_novel_light.py).
+# test_torch_volume.py, test_torch_ground.py, test_torch_novel_light.py,
+# test_torch_options.py, test_torch_hashgrid.py).
 # tpu.volume_cull is the volume renderer's: it renders the stage-1 network
 # through VolumeRenderer (SphereTracingRenderer ignores it, as the JAX
-# package's does); vis_ground_shading renders the whole 16x16 frame
+# package's does); vis_ground_shading renders the whole 16x16 frame;
+# e_type hash renders golden.hash_params' network; the ablations
+# 'can' and 'curve' carry these camera rays 2 m away to a zero transform
+# and hit nothing, as the JAX package's do (test_torch_options.py holds
+# them on rays near the body)
 PORTED = [('tpu', 'shadow_grid', 17), ('tpu', 'lvis_sweep', True),
           ('tpu', 'surf_miss_skip', True), ('tpu', 'bf16_mlp', True),
           ('tpu', 'bf16_act', True), ('tpu', 'volume_cull', 32),
-          (None, 'vis_ground_shading', True)]
+          (None, 'vis_ground_shading', True),
+          ('tpu', 'surf_grid_iters', 8), ('tpu', 'shadow_compact', 0.5),
+          ('tpu', 'shadow_skip_resd', True), ('tpu', 'shadow_verts_sub', 4),
+          ('tpu', 'knn_impl', 'grouped'), ('tpu', 'knn_impl', 'xla'),
+          (None, 'e_type', 'hash'), (None, 'ablate_hdq_mode', 'world')]
 
 
 @pytest.mark.parametrize("node,key,value", PORTED, ids=[f"{k}={v}" for _, k, v in PORTED])
@@ -213,7 +218,7 @@ def test_ported_options_render(fixture_scene, node, key, value):
     cfg.tpu.lvis_downscale = 8
     cfg.tpu.ray_block = 64
     (cfg[node] if node else cfg)[key] = value
-    if key in ('lvis_sweep', 'surf_miss_skip'):
+    if key in ('lvis_sweep', 'surf_miss_skip', 'surf_grid_iters'):
         cfg.tpu.shadow_grid = 17            # the grid these options read
     batch, mab = golden.frame_batch(ctx, 16, 16)
     n = 16 * 16 if key == 'vis_ground_shading' else int(mab.sum())
@@ -224,9 +229,10 @@ def test_ported_options_render(fixture_scene, node, key, value):
         _, params, mcfg = golden.load_fixture(cfg, device="cpu")   # the stage-1 network
         renderer = VolumeRenderer(cfg, params, mcfg, device="cpu")
     else:
-        renderer = SphereTracingRenderer(cfg, params,
-                                         AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8),
-                                         device="cpu")
+        mcfg = AniSDFConfig.from_cfg(cfg)._replace(sdf_res=8)
+        if key == 'e_type':
+            params = golden.hash_params(mcfg, device="cpu")
+        renderer = SphereTracingRenderer(cfg, params, mcfg, device="cpu")
     out = renderer.render(batch)
     assert out.rgb_map.shape == (n, 3)
     assert (out.acc_map > 0).any()
