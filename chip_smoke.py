@@ -142,6 +142,22 @@ Phases, each printing one flushed line with its wall seconds:
           32x32 frame and the ablations world, can and curve on the 256-ray
           near-body bundle (``golden.near_bundle_rays``), card against CPU:
           >= 50 dB on every map, spec_map within 20 % of each pixel
+  multi-gpu  the port under ``python -m torch.distributed.run --standalone
+          --nproc_per_node W`` (W = min(card count, 4), one rank a card,
+          NCCL): ``eval/dist_check.py`` renders the exact 512² frame sharded
+          over the ranks against [frame]'s single-process maps (within 1e-6,
+          spec_map >= 45 dB) and runs the float32 reference stage-1 and
+          stage-2 steps (``train_check.reference_step``) through the
+          distributed Trainer against the same steps in this process (loss
+          within 1e-5, every gradient within 1e-4 of its largest entry); each
+          rank shows the mesh path ran (a process group, the renderer's mesh
+          of the world, gathers in the frame, all-reduces in each step, K1
+          launches) and times the frame's gathers and each step's gradient
+          all-reduce; then on [cli]'s tree ``python -m
+          torch.distributed.run ... -m relightableavatar_tpu_torch.train``
+          for 1 epoch of 2 iterations (one checkpoint, finite losses, the
+          trainer's mesh) and ``resume True`` for a second epoch.  A NCCL or
+          rank failure fails the phase: nothing falls back.
 The last three lines are nvidia-smi's "name, power limit" line, a
 {"kernels": [...]} JSON object and {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before them; where the kernel and its plain
@@ -161,6 +177,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -174,7 +191,7 @@ from relightableavatar_tpu_torch.config import setup
 from relightableavatar_tpu_torch.data.datasets import (load_lighting, make_data_loader,
                                                        make_dataset)
 from relightableavatar_tpu_torch.data.image_io import read_rgb, write_png
-from relightableavatar_tpu_torch.eval import golden, mesh_check, train_check
+from relightableavatar_tpu_torch.eval import dist_check, golden, mesh_check, train_check
 from relightableavatar_tpu_torch.eval.evaluator import MeshEvaluator
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cloud_sha256, cuda_ms, frame_input_name, knn_cases, record_knn_inputs,
@@ -267,6 +284,9 @@ SUB_N = 2048                # vertices of the shadow rays' subsample
 # 0.08 % hash.  The bar is about five times the largest
 OPTION_SPEC_REL = 0.2
 SELECT_P = 8192             # points of the KNN routes' card-vs-CPU check
+MULTI_GPU_MAX = 4           # ranks of the [multi-gpu] phase: min(card count, this)
+MULTI_GPU_TIMEOUT = 300     # seconds a torchrun subprocess of [multi-gpu] may take
+MULTI_GPU_ITERS = 2         # iterations of the CLI's epoch under torchrun
 GROUPED_D2_REL = 1e-6       # knn_grouped's d2, card vs CPU (summation order)
 
 
@@ -351,15 +371,30 @@ def host_ms(fn) -> float:
 def run_cli(task_args: list, timeout: int = CLI_TIMEOUT, cwd: str = REPO) -> tuple[str, float]:
     """Run a port entry point as ``python -m ...`` in ``cwd`` (the repo's
     root by default; the package is found through PYTHONPATH); fails on a
-    non-zero exit.  Returns (stdout + stderr, seconds)."""
+    non-zero exit, and after ``timeout`` seconds kills it and every process
+    it started and fails with the end of its output.  Returns (stdout +
+    stderr, seconds)."""
     t0 = time.perf_counter()
     path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
-    proc = subprocess.run([sys.executable, "-m", *task_args], cwd=cwd, capture_output=True,
-                          text=True, timeout=timeout,
-                          env={**os.environ, "RA_TPU_NO_PDB": "1", "PYTHONPATH": path})
+    # a session of its own: on a timeout the whole group goes (torchrun's workers too)
+    proc = subprocess.Popen([sys.executable, "-m", *task_args], cwd=cwd, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True,
+                            env={**os.environ, "RA_TPU_NO_PDB": "1", "PYTHONPATH": path})
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        check(False, f"{' '.join(task_args[:3])} ran past {timeout} s:\n{out[-2000:]}\n"
+              f"{err[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
     check(proc.returncode == 0, f"{' '.join(task_args[:3])} exited {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return proc.stdout + proc.stderr, time.perf_counter() - t0
+          f"{out[-2000:]}\n{err[-4000:]}")
+    return out + err, time.perf_counter() - t0
 
 
 def frame_ms(log: str, task: str) -> dict:
@@ -1036,6 +1071,88 @@ def options_phase(smi: str, ctx: dict, batch, n_fg: int) -> dict:
     return ret
 
 
+def multi_gpu_phase(smi: str, tmp: str, frame: dict, count: int) -> dict:
+    """The [multi-gpu] phase (see the module docstring): ``frame`` holds
+    [frame]'s single-process maps (numpy), ``tmp`` [cli]'s tree.  Returns
+    the ranks' K1 launches of the sharded frame and their dist_check lines."""
+    t0 = time.perf_counter()
+    W = min(count, MULTI_GPU_MAX)
+    ref = os.path.join(tmp, "dist_ref")
+    os.makedirs(ref)
+    np.savez(os.path.join(ref, "frame.npz"), **frame)
+    for stage in dist_check.STAGES:
+        trainer, batch = train_check.reference_step(stage, "cuda",
+                                                    record_dir=os.path.join(tmp, "dist_rec"))
+        check(trainer.mesh is None, "the in-process reference step took a ray mesh")
+        np.savez(os.path.join(ref, f"{stage}.npz"),
+                 **dist_check.step_arrays(train_check.step_result(trainer, batch)))
+        del trainer, batch
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    run = ["torch.distributed.run", "--standalone", "--nproc_per_node", str(W)]
+    log_d, check_s = run_cli([*run, "-m", "relightableavatar_tpu_torch.eval.dist_check",
+                              "--ref", ref], timeout=MULTI_GPU_TIMEOUT)
+    lines = sorted((json.loads(m) for m in re.findall(r"\[dist-check\] (\{.*\})", log_d)),
+                   key=lambda d: d["rank"])
+    check([d["rank"] for d in lines] == list(range(W)),
+          f"dist_check printed the lines of ranks {[d['rank'] for d in lines]}, not 0..{W - 1}")
+    for d in lines:
+        check(d["world"] == W and d["backend"] == "nccl", f"rank {d['rank']}: world "
+              f"{d['world']}, backend {d['backend']}")
+        check(d["frame_launches"] > 0 and d["frame_collectives"]["gather"] > 0
+              and all(d[f"{st}_launches"] > 0 and d[f"{st}_all_reduces"] > 0
+                      for st in dist_check.STAGES),
+              f"rank {d['rank']}: the mesh path did not run: {d}")
+    r0 = lines[0]
+    t_check = time.perf_counter()
+
+    # the train CLI under torchrun: 1 epoch, then a resume for a second
+    data = os.path.join(tmp, "tubeman")
+    common = ["-c", CLI_CFG, "exp_name", "tubeman_dist", "trained_model_dir",
+              os.path.join(tmp, "trained_dist"), "record_dir", os.path.join(tmp, "record_dist"),
+              "result_dir", os.path.join(tmp, "res_dist"), "train_dataset.data_root", data,
+              "test_dataset.data_root", data, "ep_iter", str(MULTI_GPU_ITERS),
+              "train.num_workers", "2", "eval_ep", "100", "save_ep", "100"]
+    train = [*run, "-m", "relightableavatar_tpu_torch.train", *common]
+    log_t, train_s = run_cli([*train, "resume", "False", "train.epoch", "1"],
+                             timeout=MULTI_GPU_TIMEOUT)
+    check(f"training over {W}-device mesh" in log_t, "the train CLI did not shard its step")
+    cfg_t, _ = setup(common)
+    mdir = cfg_t.trained_model_dir
+    check(sorted(os.listdir(mdir)) == ["1.npz", "latest.npz"],
+          f"the train CLI under torchrun wrote {sorted(os.listdir(mdir))}")
+    scalars = os.path.join(cfg_t.record_dir, "scalars.jsonl")
+    rows = [json.loads(line) for line in open(scalars)]
+    check(len(rows) == MULTI_GPU_ITERS and all(math.isfinite(r["loss"]) for r in rows),
+          f"the train CLI under torchrun recorded {[r.get('loss') for r in rows]}")
+    _, resume_s = run_cli([*train, "resume", "True", "train.epoch", "2"],
+                          timeout=MULTI_GPU_TIMEOUT)
+    with np.load(os.path.join(mdir, "latest.npz")) as f:
+        check(int(f["epoch"]) == 2, f"the resume under torchrun saved epoch {int(f['epoch'])}")
+    rows = [json.loads(line) for line in open(scalars)]
+    check(len(rows) == 2 * MULTI_GPU_ITERS and all(math.isfinite(r["loss"]) for r in rows),
+          f"the resumed train CLI recorded {[r.get('loss') for r in rows]}")
+    fmt = lambda d: ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in d.items())
+    per_rank = "; ".join(
+        f"rank {d['rank']} ({d['device']}, local rank {d['local_rank']}): frame "
+        f"{d['frame_s']:.3f} s, K1 launches {d['frame_launches']}, collectives "
+        f"{d['frame_collectives']}, gathers {d['frame_gather_ms']:.3f} ms for "
+        f"{d['frame_gather_bytes']} B; " + ", ".join(
+            f"{st} {d[st + '_s']:.3f} s, K1 launches {d[st + '_launches']}, all-reduces "
+            f"{d[st + '_all_reduces']}, gradient all-reduce {d[st + '_all_reduce_ms']:.3f} ms "
+            f"for {d[st + '_all_reduce_bytes']} B" for st in dist_check.STAGES)
+        + f"; {d['seconds']:.1f} s in all" for d in lines)
+    phase("multi-gpu", t0, f"torchrun --nproc_per_node {W}, NCCL {r0['nccl']} ({smi}); "
+          f"in-process reference steps {t_ref - t0:.1f} s; dist_check {check_s:.1f} s: "
+          f"{per_rank}; rank 0 against one process: frame {fmt(r0['frame_max_abs'])}; "
+          + "; ".join(f"{st} {fmt(r0[st])}" for st in dist_check.STAGES)
+          + f" ({t_check - t0:.1f} s so far); train CLI 1 epoch x {MULTI_GPU_ITERS} its "
+          f"{train_s:.1f} s (losses " + ", ".join(f"{r['loss']:.5f}" for r in rows)
+          + f"), resume 1 epoch {resume_s:.1f} s")
+    return dict(launches=[d["frame_launches"] for d in lines], lines=lines)
+
+
 def _card_vs_cpu(name: str, card: dict, cpu: dict, failed: list) -> tuple[float, float]:
     """Holds every map of ``card`` to ``cpu``: >= CARD_CPU_MIN_PSNR, spec_map
     within OPTION_SPEC_REL of each pixel; a map that misses its bar is added
@@ -1169,6 +1286,7 @@ def main() -> None:
     hits = int((acc > 0).sum())
     check(hits > 0, "the frame hit nothing")
     exact_rgb = rgb.cpu().numpy()
+    frame_ref = dist_check.frame_maps(res)
     phase("frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE}: {n_fg} rays in the body's bounds, "
           f"{hits} hit; render {frame_s:.3f} s = {n_fg / frame_s:.0f} rays/s; "
           f"KNN kernel launches {launches}; peak memory "
@@ -1474,9 +1592,12 @@ def main() -> None:
         train = train_phase(smi, tmp)
         torch.cuda.empty_cache()
         relight = train_relight_phase(smi, tmp, train["model_dir"])
-    torch.cuda.empty_cache()
-    # ---- the options of the HDQ, the shadow rays and the camera trace
-    opts = options_phase(smi, ctx, batch, n_fg)
+        torch.cuda.empty_cache()
+        # ---- the options of the HDQ, the shadow rays and the camera trace
+        opts = options_phase(smi, ctx, batch, n_fg)
+        torch.cuda.empty_cache()
+        # ---- the port over the cards under torchrun
+        multi = multi_gpu_phase(smi, tmp, frame_ref, count)
     max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"], relight["max_err"],
                   opts["max_err"])
 
@@ -1498,6 +1619,7 @@ def main() -> None:
         "launches_train_relight": relight["launches"],
         "launches_options": opts["launches_options"],
         "launches_premarch": opts["launches_premarch"],
+        "launches_multi_gpu": multi["launches"],
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,

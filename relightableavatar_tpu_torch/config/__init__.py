@@ -10,13 +10,16 @@ defaults -> parent_cfg chain -> experiment YAML -> CLI opts -> mode overlays
 novel_light_cfg) -> CLI opts again -> derived values.
 
 No platform switch and no process-global config: :func:`setup` builds a
-tree and returns it.  Multi-process start-up (``maybe_init_distributed``)
-is not ported yet.
+tree and returns it, after :func:`maybe_init_distributed` has joined the
+process group of a ``torchrun`` launch (one process a GPU):
+
+    torchrun --nproc_per_node 4 -m relightableavatar_tpu_torch.train -c cfg.yaml k v ...
 """
 from __future__ import annotations
 
 import argparse
 import os
+from datetime import timedelta
 from os.path import join
 
 import numpy as np
@@ -25,8 +28,10 @@ from relightableavatar_tpu_torch.config.defaults import Output, default_cfg
 from relightableavatar_tpu_torch.config.node import CN
 from relightableavatar_tpu_torch.utils.log import log
 
-__all__ = ["CN", "Output", "default_cfg", "make_cfg", "make_parser", "merge_cfg",
-           "parse_cfg", "setup", "update_cfg"]
+__all__ = ["CN", "Output", "default_cfg", "dist_env", "make_cfg", "make_parser",
+           "maybe_init_distributed", "merge_cfg", "parse_cfg", "setup", "update_cfg"]
+
+DIST_TIMEOUT_S = 300    # a rank that never reaches a collective fails the run after this
 
 
 def parse_cfg(cfg: CN, args=None) -> None:
@@ -128,13 +133,99 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
+TORCHRUN_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "MASTER_ADDR", "MASTER_PORT")
+
+
+def dist_env(environ, local_rank: int | None = None, launcher: str = "none") -> dict | None:
+    """torchrun's variables (``TORCHRUN_KEYS``) of a multi-process launch,
+    or None for a single process.
+
+    - torchrun (or ``torch.distributed.launch``) sets them; the legacy
+      launcher's ``--local_rank`` argument stands in for ``LOCAL_RANK``.
+    - The JAX package's ``RA_COORDINATOR=host:port RA_NUM_PROCESSES=N
+      RA_PROCESS_ID=i`` map onto ``MASTER_ADDR``/``MASTER_PORT``,
+      ``WORLD_SIZE``, ``RANK`` and ``GROUP_RANK``: a JAX process is a host
+      with all its chips, so each such process is a node of one GPU
+      (``LOCAL_RANK`` 0, ``LOCAL_WORLD_SIZE`` 1) unless those are set.
+    - ``RA_DIST_AUTO`` (the TPU pod's topology discovery) means torchrun's
+      environment on GPUs; without it, it raises.
+    - ``launcher='pytorch'`` (``-l pytorch``) requires a launch."""
+    env = None
+    if environ.get("RA_COORDINATOR"):
+        host, port = environ["RA_COORDINATOR"].rsplit(":", 1)
+        pid = environ["RA_PROCESS_ID"]
+        env = dict(MASTER_ADDR=host, MASTER_PORT=port, WORLD_SIZE=environ["RA_NUM_PROCESSES"],
+                   RANK=pid, LOCAL_RANK=environ.get("LOCAL_RANK", "0"),
+                   LOCAL_WORLD_SIZE=environ.get("LOCAL_WORLD_SIZE", "1"),
+                   GROUP_RANK=environ.get("GROUP_RANK", pid))
+    elif environ.get("WORLD_SIZE"):
+        env = {k: environ[k] for k in TORCHRUN_KEYS if k in environ}
+        missing = [k for k in ("RANK", "MASTER_ADDR", "MASTER_PORT") if k not in env]
+        if missing:
+            raise RuntimeError(f"WORLD_SIZE is set but {', '.join(missing)} are not: launch "
+                               "with torchrun")
+        env.setdefault("LOCAL_RANK", str(local_rank or 0))
+        env.setdefault("LOCAL_WORLD_SIZE", "1")
+        env.setdefault("GROUP_RANK", str(int(env["RANK"]) // int(env["LOCAL_WORLD_SIZE"])))
+    if environ.get("RA_DIST_AUTO"):
+        if env is None:
+            raise RuntimeError("RA_DIST_AUTO: on GPUs the topology is torchrun's environment "
+                               "(RANK, WORLD_SIZE, MASTER_ADDR, ...), which is not set; "
+                               "launch with torchrun")
+        log("RA_DIST_AUTO: the topology is torchrun's environment", "yellow")
+    if env is None and launcher == "pytorch":
+        raise RuntimeError("-l pytorch: no torchrun environment (RANK, WORLD_SIZE, ...); "
+                           "launch with torchrun")
+    return env
+
+
+def maybe_init_distributed(device="cuda", local_rank: int | None = None,
+                           launcher: str = "none", timeout_s: float = DIST_TIMEOUT_S) -> bool:
+    """Join the process group of a multi-process launch (:func:`dist_env`),
+    the reference's ``torchrun ... distributed True``
+    (``train.py:116-122``): NCCL for a CUDA ``device``, each process on the
+    card ``LOCAL_RANK``, gloo for the CPU.  Collectives time out after
+    ``timeout_s`` seconds, so a rank that never arrives fails the run
+    instead of hanging it.  A no-op returning False for a single process;
+    True once the group exists."""
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    env = dist_env(os.environ, local_rank, launcher)
+    if env is None:
+        return False
+    os.environ.update(env)
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a CUDA process group was asked for but torch finds no CUDA "
+                               "device")
+        torch.cuda.set_device(int(env["LOCAL_RANK"]))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://", world_size=int(env["WORLD_SIZE"]),
+                            rank=int(env["RANK"]), timeout=timedelta(seconds=timeout_s))
+    log(f"distributed: rank {env['RANK']} of {env['WORLD_SIZE']} ({backend}), node "
+        f"{env['GROUP_RANK']}, local rank {env['LOCAL_RANK']} @ "
+        f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}", "yellow")
+    return True
+
+
 def setup(argv=None):
-    """Parse the command line into a new config tree. Returns (cfg, args)."""
+    """Join a multi-process launch's group on the cards
+    (:func:`maybe_init_distributed`) and parse the command line into a new
+    config tree. Returns (cfg, args)."""
     args = make_parser().parse_args(argv)
+    dist_on = maybe_init_distributed(local_rank=args.local_rank, launcher=args.launcher)
     cfg = default_cfg()
     if len(args.type) > 0:
         cfg.task = "run"
     update_cfg(cfg, args)
+    if dist_on:
+        cfg.distributed = True
+        cfg.local_rank = int(os.environ["LOCAL_RANK"])
     if cfg.fix_random:
         # the reference seeds torch/cuda/numpy/random
         # (net_utils.py:1376-1384); the host-side generators here

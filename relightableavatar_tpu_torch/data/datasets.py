@@ -15,8 +15,8 @@ when that folder exists, else each named HDRI gets the procedural
 The train split samples its rays over cached per-(index, H, W) pools with
 a numpy stream keyed by (seed, index, draw), as the JAX package does, so an
 item equals the JAX item bit for bit; the training loader cycles a
-``TrainSampler`` with a threaded prefetch.  Multi-process sharding of the
-sampler is ROADMAP item 13 (rank 0 of world 1 here).
+``TrainSampler`` (strided by node under a multi-GPU launch) with a
+threaded prefetch.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from relightableavatar_tpu_torch.data import rays as ray_utils
 from relightableavatar_tpu_torch.models.context import (bigpose_A, make_bigpose,
                                                         make_frame_context,
                                                         make_frame_context_mesh)
+from relightableavatar_tpu_torch.parallel.mesh import node_rank_world
 from relightableavatar_tpu_torch.smpl.body_model import BodyModel, get_bounds
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.log import log
@@ -826,23 +827,27 @@ class MeshFrameSampler(FrameSampler):
 
 
 class TrainSampler:
-    """Epoch-seeded shuffling sampler, rank-strided, cycling the dataset
+    """Epoch-seeded shuffling sampler, strided by node, cycling the dataset
     without end within an epoch (reference ``samplers.py``: DistributedSampler
     :74-130, IterationBasedBatchSampler :49-71, RandomSampler).  Each pass
-    reshuffles with its own (seed, epoch, pass) stream.  Rank 0 of world 1:
-    multi-process training is ROADMAP item 13."""
+    reshuffles with its own (seed, epoch, pass) stream.
 
-    def __init__(self, n: int, shuffle: bool = True, seed: int = 0, rank: int = 0,
-                 world: int = 1):
-        if world != 1 or rank != 0:
-            raise NotImplementedError(
-                f"TrainSampler rank {rank} of world {world}: multi-process training is "
-                "not ported yet (ROADMAP item 13)")
+    ``rank`` and ``world`` default to the node and the node count
+    (``parallel.mesh.node_rank_world``: torchrun's ``GROUP_RANK`` and
+    ``WORLD_SIZE // LOCAL_WORLD_SIZE``), the JAX package's process index and
+    count, a JAX process being a host with all its chips.  So every GPU rank
+    of a node draws the same items and keeps its slice of their rays (the
+    trainer's ray mesh), as the chips of a JAX host do; a sampler strided by
+    GPU rank would be DDP's semantics, not the JAX package's."""
+
+    def __init__(self, n: int, shuffle: bool = True, seed: int = 0, rank: int | None = None,
+                 world: int | None = None):
+        node, nodes = node_rank_world()
         self.n = n
         self.shuffle = shuffle
         self.seed = seed
-        self.rank = rank
-        self.world = world
+        self.rank = node if rank is None else rank
+        self.world = nodes if world is None else world
         self.epoch = 0
 
     def __len__(self):  # items a rank takes in a pass

@@ -2,11 +2,16 @@
 
 Entry points default to ``device="cuda"`` and never fall back to the CPU:
 asking for a card that is not there raises.  The CPU is used only when the
-caller asks for it (the tests do).
+caller asks for it (the tests do).  In a process of a multi-GPU launch
+(``config.maybe_init_distributed``), "cuda" is the process's own card,
+``cuda:LOCAL_RANK``.
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -14,13 +19,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     for and none is present.  On CUDA it also turns TF32 off for matmuls and
     convolutions: the goldens are full float32
     (``relightableavatar_tpu/eval/golden.py:81-83``), and TF32 keeps about
-    three decimal digits."""
+    three decimal digits.  Under a process group an unnumbered "cuda" is
+    ``cuda:LOCAL_RANK``, made the current device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device!r} was asked for but torch finds no CUDA "
                 "device; pass device='cpu' to run on the CPU")
+        if dev.index is None and dist.is_available() and dist.is_initialized():
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         # the bfloat16 MLP path accumulates in float32, as the JAX package's

@@ -81,6 +81,18 @@ def relight_step_cfg(bf16: bool, record_dir: str | None = None):
     return cfg
 
 
+def reference_step(stage: str, device, record_dir: str | None = None):
+    """(trainer, batch) of a reference step in float32 from a fresh trainer
+    (so that its generator's draws are the first): ``stage1``, bench.py's
+    geometry with stratified samples, or ``stage2``, the reference relight
+    step.  Under a process group the trainer shards the rays; its draws
+    are the same on every rank and in one process."""
+    if stage == "stage1":
+        cfg = step_cfg(BENCH_B, BENCH_S, bf16=False, perturb=True, record_dir=record_dir)
+        return make_step(cfg, device, BENCH_R)
+    return make_step(relight_step_cfg(bf16=False, record_dir=record_dir), device, RELIGHT_R)
+
+
 def make_step(cfg, device, R: int, seed: int = 0):
     """(trainer, batch): a Trainer of the fixture's stage-1 parameters on
     ``device`` and a collated batch of ``cfg.train.batch_size`` frames of R

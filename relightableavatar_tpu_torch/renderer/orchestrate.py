@@ -4,8 +4,21 @@ the per-frame SDF grid bake and slice sweep, the frame-global miss skip,
 per-block render, assembly, the full-frame ground pass, and the novel-light
 sweep that traces geometry and visibility once and re-shades per light
 (reference ``sphere_tracing_renderer.py:1066-1115`` and
-``novel_light_sphere_tracing.py:21-221``).  No fused frame
-(``tpu.frame_fuse`` raises).
+``novel_light_sphere_tracing.py:21-221``).
+
+``tpu.frame_fuse`` (the JAX package's one executable a frame: the bake, the
+sweep and a ``lax.scan`` over the ray blocks) renders through the per-block
+loop, whose pixels the fused frame equals.
+
+Under a process group (``torchrun``, ``parallel/mesh.py``) each ray block
+is split over the ranks (the block padded to a multiple of the world): each
+rank renders its slice and the maps are gathered, so every rank holds the
+frame, as the JAX package's sharded arrays are global.  The grid bake and
+the slice sweep run whole on every rank (JAX's context is replicated), the
+frame-global miss skip is off (JAX's ``self.mesh is None``) while the
+in-block skip stays, the termination statistic is summed over the ranks,
+and the novel-light re-shade runs on each rank's slice of the base maps.
+The ground pass runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -28,11 +41,14 @@ from relightableavatar_tpu_torch.ops.lbs import normalize
 from relightableavatar_tpu_torch.ops.lvis_sweep import sweep_ratio_volume
 from relightableavatar_tpu_torch.ops.sdf_grid import (axis_resolutions, build_hdq_grid,
                                                       grid_sdf_lower_bound, pack_grid_corners)
+from relightableavatar_tpu_torch.parallel.mesh import (all_sum, distributed, gather_rays,
+                                                       get_mesh, shard_rays)
 from relightableavatar_tpu_torch.renderer.ground import render_ground_block
 from relightableavatar_tpu_torch.renderer.sphere_tracing import (
     RelightRenderConfig, render_human_block)
 from relightableavatar_tpu_torch.renderer.tracing import STConfig, safe_miss_march
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.utils.log import log
 
 
 def pad_rays(ray_o, ray_d, near, far, block, far_pad: float = 0.11):
@@ -90,6 +106,13 @@ class SphereTracingRenderer:
                                                         cfg.env_r, device=self.device)
         self.light_sharp = 1.0 / torch.sqrt(self.light_area / np.pi)
         self.block = int(cfg.tpu.ray_block)
+        if cfg.tpu.frame_fuse:
+            log('tpu.frame_fuse: the frame renders through the per-block loop, whose pixels '
+                "the JAX package's fused frame equals", 'yellow')
+        # multi-GPU rendering: each rank owns a slice of every ray block
+        self.mesh = get_mesh(cfg, device=self.device) if distributed() else None
+        if self.mesh is not None:
+            self.block += (-self.block) % self.mesh.world
         self._term_sdf_sum = 0.0
         self._term_sdf_cnt = 0.0
         self._grid_res = None
@@ -235,7 +258,7 @@ class SphereTracingRenderer:
         order = None
         n_active = len(ray_o)
         block_rcfg = rcfg
-        if (rcfg.surf_miss_skip and shadow_sdf_grid is not None
+        if (rcfg.surf_miss_skip and shadow_sdf_grid is not None and self.mesh is None
                 and rcfg.ablate_mode == 'hdq' and not rcfg.want_light_maps
                 and not rcfg.check_bound_sdf and not rcfg.check_termination_sdf):
             miss = self.miss_march(shadow_sdf_grid, gbox, put(ray_o), put(ray_d),
@@ -247,14 +270,15 @@ class SphereTracingRenderer:
             block_rcfg = rcfg._replace(surf_miss_skip=False)
             t0 = self._stage('march', t0)
 
+        own = (lambda a: a) if self.mesh is None else (lambda a: shard_rays(self.mesh, a))
         outs = []
         for i in range(0, len(ray_o), self.block):
             if order is not None and i >= n_active and outs:
                 continue                                     # proven-miss block
             s = slice(i, i + self.block)
             outs.append(render_human_block(
-                self.params, self.mcfg, ctx, put(ray_o[s]), put(ray_d[s]),
-                put(near[s]), put(far[s]), probe, self.light_xyz,
+                self.params, self.mcfg, ctx, put(own(ray_o[s])), put(own(ray_d[s])),
+                put(own(near[s])), put(own(far[s])), probe, self.light_xyz,
                 self.light_area, self.light_sharp, self.st_surf, self.st_obj,
                 block_rcfg, shadow_sdf_grid=shadow_sdf_grid, lvis_volume=lvis_volume))
         self.last_frame.blocks = len(ray_o) // self.block
@@ -265,6 +289,8 @@ class SphereTracingRenderer:
         if order is not None:
             prefix = torch.as_tensor(order[:len(outs) * self.block], device=dev)
             ret.update(_assemble_unsort(outs, prefix, len(ray_o), P))
+        elif self.mesh is not None:
+            ret.update(self._gather_blocks(outs, P))
         else:
             for k in outs[0]:
                 if k.startswith('term_sdf_'):
@@ -285,6 +311,23 @@ class SphereTracingRenderer:
             ret = self._render_ground(batch, ret, envmap)
             self._stage('ground', t0)
         return ret
+
+    def _gather_blocks(self, outs, P: int) -> dict:
+        """The maps of every rank's block slices, in the frame's ray order
+        (block by block, each block rank by rank), cut to ``P``; the
+        termination statistic summed over the ranks."""
+        res = {}
+        W, nb = self.mesh.world, len(outs)
+        for k in outs[0]:
+            if k.startswith('term_sdf_'):
+                res[k] = float(all_sum(self.mesh, sum(o[k][0] for o in outs)))
+                continue
+            mine = torch.cat([o[k] for o in outs], dim=0)        # (nb * b/W, ...)
+            full = gather_rays(self.mesh, mine)                  # rank by rank
+            tail = tuple(full.shape[1:])
+            full = full.reshape((W, nb, -1) + tail).transpose(0, 1)
+            res[k] = full.reshape((-1,) + tail)[:P]
+        return res
 
     # ------------------------------------------------------------- ground
     def _render_ground(self, batch, ret, envmap, mutate_mask: bool = True) -> dotdict:
@@ -568,6 +611,16 @@ class NovelLightRenderer(SphereTracingRenderer):
 
     CHUNK = 32      # lights a reshade_sweep_block call
 
+    def _own_rays(self, *maps) -> list:
+        """This rank's slice of each (P, ...) map (all of them without a
+        mesh); under a mesh P is padded to a multiple of the world with
+        copies of the last row, which the gather cuts off."""
+        if self.mesh is None:
+            return list(maps)
+        pad = (-maps[0].shape[0]) % self.mesh.world
+        return [shard_rays(self.mesh, torch.cat([m, m[-1:].expand((pad,) + m.shape[1:])]))
+                for m in maps]
+
     @torch.no_grad()
     def render(self, batch) -> dotdict:
         cfg = self.cfg
@@ -615,11 +668,14 @@ class NovelLightRenderer(SphereTracingRenderer):
 
         t0 = time.perf_counter()
         novel = dotdict()
+        cached = self._own_rays(surf, norm, albedo, rough, lvis, ldot, acc, ray_o)
         for s in range(0, len(entries), self.CHUNK):
             chunk = entries[s:s + self.CHUNK]
-            maps = reshade_sweep_block(surf, norm, albedo, rough, lvis, ldot, acc, ray_o,
-                                       torch.stack([p for _, p, _ in chunk]),
+            maps = reshade_sweep_block(*cached, torch.stack([p for _, p, _ in chunk]),
                                        self.light_xyz, self.light_area, self.rcfg)
+            if self.mesh is not None:
+                maps = dotdict({k: gather_rays(self.mesh, v, axis=1)[:, :acc.shape[0]]
+                                for k, v in maps.items()})
             for j, (name, p, envmap) in enumerate(chunk):
                 frame = dotdict(rgb_map=maps.rgb_map[j], shade_map=maps.shade_map[j],
                                 albedo_map=albedo, norm_map=norm, acc_map=acc,

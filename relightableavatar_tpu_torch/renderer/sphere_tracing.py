@@ -12,8 +12,8 @@ volume (``tpu.lvis_sweep``), the camera trace's exact miss skip
 options (``tpu.shadow_skip_resd``, ``tpu.shadow_compact``,
 ``tpu.shadow_verts_sub``) and the HDQ ablations (``ablate_hdq_mode``
 'world', 'can', 'curve'); and the stage-2 training render, with the graph
-to the parameters.  ``tpu.frame_fuse`` raises in
-:meth:`RelightRenderConfig.from_cfg`.
+to the parameters.  ``tpu.frame_fuse`` is the frame orchestrator's
+(``renderer/orchestrate.py``), not a block's.
 """
 from __future__ import annotations
 
@@ -39,11 +39,6 @@ from relightableavatar_tpu_torch.renderer.tracing import (STConfig, sphere_trace
                                                           sphere_trace_miss_skip)
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
-# cfg.tpu options that are not ported, with the value that means "off";
-# turning one on raises instead of being ignored (tpu.volume_cull is the
-# volume renderer's, renderer/volume.py, and this path ignores it as the
-# JAX package's does)
-_UNPORTED_TPU = {'frame_fuse': False}
 ABLATE_MODES = ('hdq', 'world', 'can', 'curve')
 
 
@@ -90,11 +85,6 @@ class RelightRenderConfig(NamedTuple):
 
     @classmethod
     def from_cfg(cls, cfg) -> "RelightRenderConfig":
-        for key, off in _UNPORTED_TPU.items():
-            if cfg.tpu[key] != off:
-                raise NotImplementedError(
-                    f"tpu.{key}={cfg.tpu[key]!r} is not ported; only the exact "
-                    f"path runs (set it to {off!r})")
         if cfg.ablate_hdq_mode not in ABLATE_MODES:
             raise ValueError(f"ablate_hdq_mode={cfg.ablate_hdq_mode!r}: one of {ABLATE_MODES}")
         return cls(

@@ -10,6 +10,12 @@ the card; each ``run_*`` function takes ``device`` (the tests pass "cpu").
 Each frame prints one progress line to stderr with its host seconds:
 ``data`` (the loader's ``__getitem__``), ``render`` (ending in a device
 sync) and ``write`` (the evaluator's or visualizer's metrics and files).
+
+Under ``torchrun`` (one process a GPU, NCCL) every rank loads the same
+frame and renders its slice of the rays through the sharded renderer
+(``renderer/orchestrate.py``); rank 0 alone scores, writes and prints:
+
+    torchrun --standalone --nproc_per_node N -m relightableavatar_tpu_torch.run -t evaluate -c cfg.yaml k v ...
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import time
 
 import numpy as np
 import torch
+
+from relightableavatar_tpu_torch.parallel.mesh import process_rank
 
 
 def _sync(device) -> None:
@@ -40,6 +48,8 @@ def _frames(loader):
 
 
 def _progress(task: str, i: int, n: int, **secs) -> None:
+    if process_rank() != 0:
+        return
     parts = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in secs.items())
     print(f"[{task}] frame {i + 1}/{n}: {parts}", file=sys.stderr, flush=True)
 
@@ -74,7 +84,7 @@ def run_network(cfg, device="cuda"):
         _, render_s = _render(renderer, batch, device)
         net_time.append(render_s)
         _progress('network', i, len(loader), data=data_s, render=render_s)
-    if len(net_time) > 1:
+    if len(net_time) > 1 and process_rank() == 0:
         diff = np.asarray(net_time[1:])  # the first frame includes set-up
         print(f'mean render time: {diff.mean():.4f}s, fps: {1.0 / diff.mean():.2f}')
 
@@ -85,15 +95,16 @@ def run_evaluate(cfg, device="cuda"):
                                                            make_renderer)
     params, mcfg = make_network(cfg, device=device)
     renderer = make_renderer(cfg, params, mcfg, device=device)
-    evaluator = make_evaluator(cfg)
+    evaluator = make_evaluator(cfg) if process_rank() == 0 else None
     loader = make_data_loader(cfg, is_train=False, device=device)
     for i, batch, data_s in _frames(loader):
         out, render_s = _render(renderer, batch, device)
         t0 = time.perf_counter()
-        evaluator.evaluate(out, batch)
+        if evaluator is not None:
+            evaluator.evaluate(out, batch)
         _progress('evaluate', i, len(loader), data=data_s, render=render_s,
                   write=time.perf_counter() - t0)
-    return evaluator.summarize()
+    return evaluator.summarize() if evaluator is not None else None
 
 
 def run_visualize(cfg, device="cuda"):
@@ -102,15 +113,17 @@ def run_visualize(cfg, device="cuda"):
                                                            make_visualizer)
     params, mcfg = make_network(cfg, device=device)
     renderer = make_renderer(cfg, params, mcfg, device=device)
-    visualizer = make_visualizer(cfg)
+    visualizer = make_visualizer(cfg) if process_rank() == 0 else None
     loader = make_data_loader(cfg, is_train=False, device=device)
     for i, batch, data_s in _frames(loader):
         out, render_s = _render(renderer, batch, device)
         t0 = time.perf_counter()
-        visualizer.visualize(out, batch)
+        if visualizer is not None:
+            visualizer.visualize(out, batch)
         _progress('visualize', i, len(loader), data=data_s, render=render_s,
                   write=time.perf_counter() - t0)
-    visualizer.summarize()
+    if visualizer is not None:
+        visualizer.summarize()
 
 
 TASKS = {'dataset': run_dataset, 'network': run_network,
@@ -118,13 +131,19 @@ TASKS = {'dataset': run_dataset, 'network': run_network,
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
     from relightableavatar_tpu_torch.config import setup
     from relightableavatar_tpu_torch.utils.log import post_mortem_on_crash
     cfg, args = setup(argv)
-    if args.type not in TASKS:
-        raise SystemExit(f"-t must be one of {', '.join(TASKS)}, got {args.type!r}")
-    with post_mortem_on_crash():
-        TASKS[args.type](cfg)
+    try:
+        if args.type not in TASKS:
+            raise SystemExit(f"-t must be one of {', '.join(TASKS)}, got {args.type!r}")
+        with post_mortem_on_crash():
+            TASKS[args.type](cfg)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == '__main__':

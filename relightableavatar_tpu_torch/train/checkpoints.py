@@ -23,6 +23,7 @@ from os.path import join
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.parallel.mesh import barrier, process_rank
 from relightableavatar_tpu_torch.utils.log import log
 from relightableavatar_tpu_torch.weights import checkpoint_path, params_from_flat
 
@@ -112,7 +113,15 @@ def save_model(model_dir: str, params: dict, opt, epoch: int, latest: bool = Tru
                keep: int = 20, aux: dict | None = None) -> None:
     """Write ``latest.npz`` and ``<epoch>.npz`` (``latest``) or only
     ``<epoch>.npz``, and keep the newest ``keep`` epoch files
-    (net_utils.py:1463-1492).  ``opt`` (a TrainOptimizer) may be None."""
+    (net_utils.py:1463-1492).  ``opt`` (a TrainOptimizer) may be None.
+    Under a multi-GPU launch rank 0 writes (the ranks hold the same state)
+    and every rank returns after the files exist."""
+    if process_rank() == 0:
+        _write_model(model_dir, params, opt, epoch, latest, keep, aux)
+    barrier()
+
+
+def _write_model(model_dir, params, opt, epoch, latest, keep, aux) -> None:
     os.makedirs(model_dir, exist_ok=True)
     flat = {"epoch": np.asarray(epoch)}
     if aux is not None:

@@ -12,6 +12,13 @@ The epoch loop with its save and eval cadences and the checkpoint resume.
 takes its geometry from ``geometry_pretrain`` (a stage-1 checkpoint) and the
 relight heads and the envmap from ``init_anisdf``, and the checkpoints go
 under ``relight/<exp_name>/``.
+
+Under ``torchrun`` (one process a GPU, NCCL) the step is sharded over the
+ranks (``train/trainer.py``); every rank loads a resumed checkpoint onto its
+card and renders the evaluation; rank 0 writes the checkpoints, the records
+and the log lines, and scores the evaluation:
+
+    torchrun --standalone --nproc_per_node N -m relightableavatar_tpu_torch.train -c cfg.yaml k v ...
 """
 from __future__ import annotations
 
@@ -22,13 +29,15 @@ import shutil
 def train(cfg, device="cuda"):
     from relightableavatar_tpu_torch.data.datasets import make_data_loader
     from relightableavatar_tpu_torch.models.factory import make_evaluator, make_network
+    from relightableavatar_tpu_torch.parallel.mesh import barrier, process_rank
     from relightableavatar_tpu_torch.train.checkpoints import load_model, save_model
     from relightableavatar_tpu_torch.train.trainer import Trainer
     from relightableavatar_tpu_torch.utils.log import log
 
-    if not cfg.resume and os.path.exists(cfg.trained_model_dir):
+    if not cfg.resume and os.path.exists(cfg.trained_model_dir) and process_rank() == 0:
         # before make_network, which would start from the folder's latest
         shutil.rmtree(cfg.trained_model_dir)
+    barrier()
 
     params, mcfg = make_network(cfg, device=device, cold_start=True)
     trainer = Trainer(cfg, params, mcfg, device=device)
@@ -75,7 +84,7 @@ def train(cfg, device="cuda"):
         if (epoch + 1) % cfg.eval_ep == 0 and not cfg.skip_eval:
             try:
                 test_loader = make_data_loader(cfg, is_train=False, device=device)
-                trainer.val(test_loader, make_evaluator(cfg))
+                trainer.val(test_loader, make_evaluator(cfg) if process_rank() == 0 else None)
             except Exception as e:  # eval must not stop training (train.py:77-82)
                 log(f'eval failed: {e}', 'red')
     trainer.profiler.close()
@@ -90,14 +99,19 @@ def test(cfg, device="cuda"):
 
 def main(argv=None):
     import torch
+    import torch.distributed as dist
 
     from relightableavatar_tpu_torch.config import setup
     from relightableavatar_tpu_torch.utils.log import post_mortem_on_crash
     cfg, args = setup(argv)
     if cfg.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
-    with post_mortem_on_crash():
-        if args.test:
-            test(cfg)
-        else:
-            train(cfg)
+    try:
+        with post_mortem_on_crash():
+            if args.test:
+                test(cfg)
+            else:
+                train(cfg)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -14,6 +14,17 @@ optimiser's update.  The random draws of a step, the stratified samples
 (B, R, S, 3) of stage 2, come as one block from the trainer's generator and
 are sliced per chunk, so chunking changes no draw.
 
+Under a process group (``torchrun``; JAX ``Trainer.__init__``'s mesh) the
+rays are sharded: each chunk's RC rays split into W contiguous slices, one a
+rank, with the chunking of the global R; the random draws are made whole on
+every rank and sliced, the losses are reductions over every rank's rays
+(``train/loss.py``), and after the chunks the gradients are summed over the
+ranks in one flat all-reduce before clipping and the update, so every rank
+holds the same parameters and the step equals the single-device one.  The
+parameters (and any optimiser state) are broadcast from rank 0 when the
+trainer is built.  Rank 0 alone writes the recorder's rows and the
+profiler's traces.
+
 ``tpu.donate`` has no meaning here (the update is in place) and is a
 logged no-op.
 """
@@ -32,6 +43,9 @@ from relightableavatar_tpu_torch.device import resolve_device
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.envmap import gen_light_xyz
+from relightableavatar_tpu_torch.parallel.mesh import (all_reduce_, all_sum, distributed,
+                                                       get_mesh, process_rank, replicate,
+                                                       shard_bounds)
 from relightableavatar_tpu_torch.renderer.sphere_tracing import (RelightRenderConfig,
                                                                  render_human_block)
 from relightableavatar_tpu_torch.renderer.tracing import STConfig
@@ -67,16 +81,20 @@ class SmoothedValue:
 
 class Recorder:
     """Smoothed scalar windows, written as ``record_dir/scalars.jsonl`` rows
-    and (``record_tb``) a TensorBoard event file."""
+    and (``record_tb``) a TensorBoard event file; with ``write`` False (the
+    ranks of a multi-GPU run but 0) it keeps the windows and writes
+    nothing."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, write: bool = True):
         self.cfg = cfg
         self.stats = {}
         self.step = 0
         self.epoch = 0
+        self.jsonl = self.tb = None
+        if not write:
+            return
         os.makedirs(cfg.record_dir, exist_ok=True)
         self.jsonl = open(join(cfg.record_dir, 'scalars.jsonl'), 'a')
-        self.tb = None
         if cfg.get('record_tb', False):
             from relightableavatar_tpu_torch.utils.tb_events import EventWriter
             self.tb = EventWriter(cfg.record_dir)
@@ -86,6 +104,8 @@ class Recorder:
             self.stats.setdefault(k, SmoothedValue()).update(v)
 
     def record(self):
+        if self.jsonl is None:
+            return
         row = {k: v.avg for k, v in self.stats.items()}
         row['step'] = self.step
         row['epoch'] = self.epoch
@@ -98,6 +118,8 @@ class Recorder:
     def record_images(self, images: dict):
         """Float [0, 1] (H, W, 3) images as PNGs under ``record_dir/images/``,
         named by epoch."""
+        if self.jsonl is None:
+            return
         from relightableavatar_tpu_torch.data.image_io import write_png
         img_dir = join(self.cfg.record_dir, 'images')
         os.makedirs(img_dir, exist_ok=True)
@@ -122,7 +144,8 @@ class Recorder:
             sv.count = int(s['count'])
 
     def close(self):
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
 
@@ -171,12 +194,23 @@ class Trainer:
             t.requires_grad_(True)
         self.optimizer = TrainOptimizer(cfg, self.named)
         self._lr_sched = make_lr_schedule(cfg, float(cfg.train.lr))
-        self.recorder = Recorder(cfg)
+        self.mesh = None
+        if distributed():
+            self.mesh = get_mesh(cfg, device=self.device)
+            W = self.mesh.world
+            if int(cfg.n_rays) % W:
+                raise ValueError(f"n_rays={cfg.n_rays} must be divisible by the {W}-device "
+                                 f"mesh (each chip owns n_rays/{W} rays)")
+            self.replicate_state()
+            log(f"training over {W}-device mesh: rays sharded, params replicated "
+                "(grad all-reduce)", 'green')
+        self.recorder = Recorder(cfg, write=process_rank() == 0)
         self.weights = loss_weights_from_cfg(cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.get('seed', 42)))
         self._warned_sem = False
         self.profiler = Profiler(cfg)
+        self.profiler.enabled &= process_rank() == 0    # rank 0 writes the traces
         self.relight = bool(cfg.relighting)
         if self.relight:
             self.rcfg = RelightRenderConfig.from_cfg(cfg)._replace(want_spec_map=False)
@@ -186,6 +220,14 @@ class Trainer:
             lx, la = gen_light_xyz(mcfg.env_h, mcfg.env_w, mcfg.env_r, device=self.device)
             self.lights = (lx, la, 1.0 / torch.sqrt(la / np.pi))
             self.shadow_rays = 0     # traced by the last step
+
+    def replicate_state(self) -> None:
+        """Broadcast the parameters and the optimiser's state on the device
+        from rank 0 (when the trainer is built; a resume loads the same
+        checkpoint on every rank)."""
+        state = [v for st in self.optimizer.opt.state.values() for v in st.values()
+                 if torch.is_tensor(v) and v.device == self.mesh.device]
+        replicate(self.mesh, [t for _, t in self.named] + state)
 
     # ------------------------------------------------------- the step
     def step(self, batch: dotdict, iter_step: int,
@@ -198,6 +240,12 @@ class Trainer:
         S = int(cfg.n_samples)
         B, R = batch.rgb.shape[:2]
         RC, NC = ray_chunks(B, R, S, int(cfg.tpu.grad_sample_budget))
+        own = slice(0, RC)                  # this rank's slice of each chunk
+        if self.mesh is not None:
+            if RC % self.mesh.world:
+                raise ValueError(f"a chunk of {RC} rays (R={R}, tpu.grad_sample_budget) does "
+                                 f"not split over the {self.mesh.world}-device mesh")
+            own = shard_bounds(self.mesh, RC)
         rand = None
         if self.relight:
             rand = jitter_noise
@@ -212,12 +260,12 @@ class Trainer:
         keys = [k for k in RAY_KEYS if k in batch]
         stats = dotdict()
         for c in range(NC):
-            sl = slice(c * RC, (c + 1) * RC)
+            sl = slice(c * RC + own.start, c * RC + own.stop)
             for b in range(B):
                 rays = dotdict({k: batch[k][b, sl] for k in keys})
                 out = self._frame_forward(batch.ctx[b], rays,
                                           None if rand is None else rand[b, sl])
-                loss, st = anisdf_losses(self.weights, out, rays, iter_step)
+                loss, st = anisdf_losses(self.weights, out, rays, iter_step, self.mesh)
                 (loss / (B * NC)).backward()
                 for k, v in st.items():
                     v = v.detach() / (B * NC)
@@ -225,6 +273,11 @@ class Trainer:
         for _, t in self.named:
             if t.grad is None:      # unused by this stage (the relight step's rgb)
                 t.grad = torch.zeros_like(t)
+        if self.mesh is not None:
+            all_reduce_(self.mesh, [t.grad for _, t in self.named])
+            if self.relight:
+                n = torch.tensor(self.shadow_rays, dtype=torch.int64, device=self.device)
+                self.shadow_rays = int(all_sum(self.mesh, n))
         self.optimizer.step()
         return stats
 
@@ -351,6 +404,8 @@ class Trainer:
                 break
 
     def val(self, loader, evaluator=None):
+        """Render the loader's frames (every rank, under a mesh) and score
+        them with ``evaluator`` (pass it on rank 0 only)."""
         from relightableavatar_tpu_torch.models.factory import make_renderer
         renderer = make_renderer(self.cfg, self.params, self.mcfg, device=self.device)
         dumped = False

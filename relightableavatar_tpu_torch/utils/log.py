@@ -35,10 +35,18 @@ def _caller_prefix() -> str:
     return f"{mod}.{fn}"
 
 
+def _other_rank() -> bool:
+    """True in a process of a multi-GPU launch other than rank 0."""
+    dist = sys.modules.get("torch.distributed")
+    return (dist is not None and dist.is_available() and dist.is_initialized()
+            and dist.get_rank() != 0)
+
+
 def log(*args, color: str = "blue", **kwargs) -> None:
     """Print to stderr with a colored caller prefix (a last positional
-    argument that names a color sets the color)."""
-    if _QUIET:
+    argument that names a color sets the color).  Under a multi-GPU launch
+    only rank 0 prints."""
+    if _QUIET or _other_rank():
         return
     args = list(args)
     if len(args) >= 2 and isinstance(args[-1], str) and args[-1] in _COLORS:

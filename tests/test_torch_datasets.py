@@ -182,12 +182,15 @@ def test_loader_matches_jax_and_train_split_raises(tree):
     assert len(ours) == len(ref) == FRAMES // 2 * VIEWS
     assert ([(b.frame_index, b.view_index) for b in ours]
             == [(b.frame_index, b.view_index) for b in ref])
-    # the train split and its loader are ported (tests/test_torch_train_data.py);
-    # sharding the sampler over processes is not yet, and raises naming its item
+    # the train split and its loader are ported (tests/test_torch_train_data.py),
+    # and so is the sampler's sharding over nodes (tests/test_torch_parallel.py):
+    # rank 1 of 2 takes the JAX sampler's items of process 1 of 2
     train = pdata.make_data_loader(pcfg, is_train=True, device="cpu")
     assert train.infinite and isinstance(train.sampler, pdata.TrainSampler)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pdata.TrainSampler(len(train.dataset), rank=1, world=2)
+    n = len(train.dataset)
+    a = iter(pdata.TrainSampler(n, rank=1, world=2))
+    b = iter(jdata.TrainSampler(n, rank=1, world=2))
+    assert [next(a) for _ in range(n)] == [next(b) for _ in range(n)]
 
 
 @pytest.mark.parametrize("split,edge", [("train", 0.0), ("train", 0.25), ("test", 0.0)])

@@ -173,17 +173,67 @@ def test_check_termination_sdf_reads_the_network_under_smpl_distance(fixture_sce
     np.testing.assert_allclose(float(out.term_sdf_sum[0]), float(net.abs().sum()), rtol=1e-5)
 
 
-UNPORTED = [('tpu', 'frame_fuse', True)]
+# tpu.frame_fuse renders through the per-block loop; held to the JAX
+# package's fused frame (one executable: the bake, the sweep and a lax.scan
+# over the blocks) on tests/test_frame_fuse.py's setup, at that file's
+# fused-vs-loop bar (measured: max |diff| 2.1e-6, norm_map; spec_map 1.6e-7)
+FUSE_TOL = 2e-5
+# the setup's 2 trace iterations hit nothing from 2 m away (every map of
+# tests/test_frame_fuse.py's frames is zero); 16 reach the body
+FUSE_TRACE_ITERS = 16
+FUSE_CASES = [(150, True), (150, False), (40, True)]
 
 
-@pytest.mark.parametrize("node,key,value", UNPORTED,
-                         ids=[f"{k}={v}" for _, k, v in UNPORTED])
-def test_unported_options_raise(fixture_scene, node, key, value):
-    cfg, _, params, _ = fixture_scene
-    cfg = cfg.clone()
-    (cfg[node] if node else cfg)[key] = value
-    with pytest.raises(NotImplementedError):
-        SphereTracingRenderer(cfg, params, AniSDFConfig.from_cfg(cfg), device="cpu")
+@pytest.mark.parametrize("P,lvis_sweep", FUSE_CASES,
+                         ids=["P150_sweep", "P150_traced", "P40_one_block"])
+def test_frame_fuse_matches_jax_fused_frame(P, lvis_sweep):
+    """``tpu.frame_fuse True`` on ``tests/test_frame_fuse.py``'s setup
+    (P = 150 in blocks of 64: 3 blocks, which JAX buckets to 4; P = 40: one
+    block; the 16-node grid, 2 x 4 lights, ``init_anisdf`` weights), both
+    sides with the exact KNN: the port's frame equals the JAX package's
+    fused frame (its renderer on one device, ``mesh = None``, so that the
+    fused executable runs) within FUSE_TOL, on a frame where some rays hit
+    and some miss."""
+    from test_frame_fuse import _setup
+    from relightableavatar_tpu.renderer.orchestrate import SphereTracingRenderer as JRenderer
+    from relightableavatar_tpu.train.checkpoints import _flatten
+    from relightableavatar_tpu.utils.dotdict import dotdict as jdotdict
+    from relightableavatar_tpu_torch.config import default_cfg
+    from relightableavatar_tpu_torch.train.checkpoints import params_from_flat
+    from relightableavatar_tpu_torch.utils.dotdict import dotdict
+
+    jcfg, jparams, jmcfg, jbatch = _setup(P=P, lvis_sweep=lvis_sweep, frame_fuse=True)
+    jcfg.sphere_tracing.iter = FUSE_TRACE_ITERS
+    jr = JRenderer(jcfg, jparams, jmcfg._replace(knn_exact=True))
+    jr.mesh = None
+    with jax.default_matmul_precision('highest'):
+        ref = jr.render(jdotdict(jbatch))
+
+    cfg = default_cfg()
+    for k in ('n_bones', 'cond_dim', 'relighting', 'n_samples', 'env_h', 'env_w'):
+        cfg[k] = jcfg[k]
+    cfg.sphere_tracing.iter = jcfg.sphere_tracing.iter
+    cfg.obj_lvis.iter = jcfg.obj_lvis.iter
+    for k in ('ray_block', 'bf16_mlp', 'shadow_grid', 'lvis_sweep', 'lvis_downscale',
+              'lvis_query_offset', 'distant_envmap', 'frame_fuse'):
+        cfg.tpu[k] = jcfg.tpu[k]
+    cfg.tpu.knn_impl = 'pallas'
+    assert cfg.tpu.frame_fuse
+    mcfg = AniSDFConfig.from_cfg(cfg)._replace(sdf_res=jmcfg.sdf_res)
+    params = params_from_flat({k: np.asarray(v) for k, v in _flatten(jparams).items()},
+                              device="cpu", mcfg=mcfg)
+    ctx = {k: torch.as_tensor(np.asarray(v)) for k, v in jbatch.ctx.items()}
+    renderer = SphereTracingRenderer(cfg, params, mcfg, device="cpu")
+    out = renderer.render(dotdict(jbatch, ctx=ctx))
+    assert renderer.last_frame.blocks == -(-P // 64)
+    assert set(out) == set(ref)
+    acc = np.asarray(ref['acc_map'])
+    assert (acc > 0).any() and (acc == 0).any()
+    for k in ref:
+        if k != 'envmap':
+            a, b = out[k].numpy(), np.asarray(ref[k])
+            assert a.shape == b.shape, k
+            np.testing.assert_allclose(a, b, rtol=FUSE_TOL, atol=FUSE_TOL, err_msg=k)
 
 
 # options that raised before they were ported; each now builds a renderer
@@ -205,7 +255,8 @@ PORTED = [('tpu', 'shadow_grid', 17), ('tpu', 'lvis_sweep', True),
           ('tpu', 'surf_grid_iters', 8), ('tpu', 'shadow_compact', 0.5),
           ('tpu', 'shadow_skip_resd', True), ('tpu', 'shadow_verts_sub', 4),
           ('tpu', 'knn_impl', 'grouped'), ('tpu', 'knn_impl', 'xla'),
-          (None, 'e_type', 'hash'), (None, 'ablate_hdq_mode', 'world')]
+          (None, 'e_type', 'hash'), (None, 'ablate_hdq_mode', 'world'),
+          ('tpu', 'frame_fuse', True)]
 
 
 @pytest.mark.parametrize("node,key,value", PORTED, ids=[f"{k}={v}" for _, k, v in PORTED])

@@ -755,9 +755,11 @@ def test_flops_match_jax():
 
 def test_trainer_refuses_what_is_not_ported(scene):
     """The relight step and the profiler's traces build (``cfg.relighting``:
-    the render config, the tracers and the light grid; ``cfg.profiling``);
-    a relight trainer still refuses a render option that is not ported,
-    naming it."""
+    the render config, the tracers and the light grid; ``cfg.profiling``).
+    ``tpu.frame_fuse`` is a frame renderer's option, which the JAX package's
+    training ignores (``renderer/orchestrate.py:269-270``): a relight
+    trainer with it builds the same render config as without, and a trainer
+    with it steps to the same loss and gradients as without."""
     cfg = scene['pc'].clone()
     cfg.relighting = True
     trainer = _port_trainer(scene, cfg=cfg)
@@ -767,5 +769,15 @@ def test_trainer_refuses_what_is_not_ported(scene):
     assert _port_trainer(scene, cfg=cfg).profiler.enabled
     cfg.relighting = True
     cfg.tpu.frame_fuse = True
-    with pytest.raises(NotImplementedError, match="frame_fuse"):
-        _port_trainer(scene, cfg=cfg)
+    fused = _port_trainer(scene, cfg=cfg)
+    assert (fused.rcfg, fused.st_surf, fused.st_obj) == (trainer.rcfg, trainer.st_surf,
+                                                         trainer.st_obj)
+    steps = []
+    for fuse in (False, True):
+        cfg = scene['pc'].clone()
+        cfg.tpu.frame_fuse = fuse
+        tr = _port_trainer(scene, cfg=cfg)
+        stats = tr.step(_port_batch(tr, scene['items']), 0)
+        steps.append((float(stats.loss), [t.grad.clone() for _, t in tr.named]))
+    assert steps[0][0] == steps[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(steps[0][1], steps[1][1]))

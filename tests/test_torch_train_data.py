@@ -99,8 +99,10 @@ def test_train_sampler_order_equals_jax():
             ours.epoch = ref.epoch = epoch
             a, b = iter(ours), iter(ref)
             assert [next(a) for _ in range(35)] == [next(b) for _ in range(35)]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pdata.TrainSampler(10, rank=1, world=4)
+    # rank 1 of world 4 (a node of a multi-node launch) as the JAX process's
+    a, b = iter(pdata.TrainSampler(10, rank=1, world=4)), iter(jdata.TrainSampler(10, rank=1,
+                                                                                  world=4))
+    assert [next(a) for _ in range(12)] == [next(b) for _ in range(12)]
 
 
 def test_training_loader_items_equal_jax(tree):
