@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below, one card
+    python3 chip_smoke.py --multi-gpu    # device, build, the tree, [multi-gpu] alone, every card (<= 4)
 
 Phases, each printing one flushed line with its wall seconds:
   device  card name and count, nvidia-smi name and power limit, versions;
@@ -144,16 +145,24 @@ Phases, each printing one flushed line with its wall seconds:
           >= 50 dB on every map, spec_map within 20 % of each pixel
   multi-gpu  the port under ``python -m torch.distributed.run --standalone
           --nproc_per_node W`` (W = min(card count, 4), one rank a card,
-          NCCL): ``eval/dist_check.py`` renders the exact 512² frame sharded
-          over the ranks against [frame]'s single-process maps (within 1e-6,
-          spec_map >= 45 dB) and runs the float32 reference stage-1 and
-          stage-2 steps (``train_check.reference_step``) through the
-          distributed Trainer against the same steps in this process (loss
-          within 1e-5, every gradient within 1e-4 of its largest entry); each
-          rank shows the mesh path ran (a process group, the renderer's mesh
-          of the world, gathers in the frame, all-reduces in each step, K1
-          launches) and times the frame's gathers and each step's gradient
-          all-reduce; then on [cli]'s tree ``python -m
+          NCCL): first NCCL alone, ``eval/nccl_probe.py``'s default setting
+          (a barrier, all_reduces of the gradient and of one float, all_gathers
+          of the frame's maps and of one map, a broadcast, each checked and
+          timed, over W ranks importing nothing of the port); then
+          ``eval/dist_check.py`` renders the exact 512² frame sharded over
+          the ranks and runs the float32 reference stage-1 and stage-2 steps
+          (``train_check.reference_step``) through the distributed Trainer,
+          against what this process computes for W ranks: the frame in
+          blocks of a rank's rays (``dist_check.reference_frame``; [frame]'s
+          maps at W = 1) within 1e-6, spec_map >= 45 dB, and the steps of W
+          ranks that are threads of this process on one card
+          (``dist_check.reference_steps``; loss within 1e-5, every gradient
+          within 1e-4 of its largest entry); over more than one card it also
+          prints how far they are from one process's whole blocks and
+          chunks; each rank shows the mesh path ran (a process group, the
+          renderer's mesh of the world, gathers in the frame, all-reduces in
+          each step, K1 launches) and times the frame's gathers and each
+          step's gradient all-reduce; then on [cli]'s tree ``python -m
           torch.distributed.run ... -m relightableavatar_tpu_torch.train``
           for 1 epoch of 2 iterations (one checkpoint, finite losses, the
           trainer's mesh) and ``resume True`` for a second epoch.  A NCCL or
@@ -177,7 +186,6 @@ import json
 import math
 import os
 import re
-import signal
 import statistics
 import subprocess
 import sys
@@ -196,6 +204,7 @@ from relightableavatar_tpu_torch.eval.evaluator import MeshEvaluator
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cloud_sha256, cuda_ms, frame_input_name, knn_cases, record_knn_inputs,
     save_knn_failure, synthetic_points, time_in_turns)
+from relightableavatar_tpu_torch.eval.nccl_probe import run_session
 from relightableavatar_tpu_torch.ops.sdf_grid import bake_chunk
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.context import make_frame_context_mesh
@@ -209,12 +218,12 @@ from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
 from relightableavatar_tpu_torch.train.trainer import ray_chunks
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
-from relightableavatar_tpu_torch.utils.flops import train_step_flops
+from relightableavatar_tpu_torch.utils.flops import DEVICE_PEAKS, device_peaks, train_step_flops
 
-# published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside the
-# tensor cores and HBM3 bandwidth
-PEAK_FP32_OPS = 67e12
-PEAK_BYTES = 3.35e12
+# published H100 SXM peaks (NVIDIA H100 datasheet, utils/flops.py): FP32
+# outside the tensor cores and HBM3 bandwidth
+PEAK_FP32_OPS = DEVICE_PEAKS["NVIDIA H100 80GB HBM3"]["fp32"]
+PEAK_BYTES = DEVICE_PEAKS["NVIDIA H100 80GB HBM3"]["hbm"]
 # the kernel's fast path a pair: the filter |v|^2 - 2 p.v as 3 FMAs (2 operations
 # each, as the peak counts them) and 1 compare (an fminf of 4 vertices' values,
 # or the compare of their minimum); the exact d2 of the rare candidates is left out
@@ -287,6 +296,7 @@ SELECT_P = 8192             # points of the KNN routes' card-vs-CPU check
 MULTI_GPU_MAX = 4           # ranks of the [multi-gpu] phase: min(card count, this)
 MULTI_GPU_TIMEOUT = 300     # seconds a torchrun subprocess of [multi-gpu] may take
 MULTI_GPU_ITERS = 2         # iterations of the CLI's epoch under torchrun
+PROBE_TIMEOUT = 90          # seconds the NCCL probe's default setting may take in all
 GROUPED_D2_REL = 1e-6       # knn_grouped's d2, card vs CPU (summation order)
 
 
@@ -368,33 +378,28 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def run_cli(task_args: list, timeout: int = CLI_TIMEOUT, cwd: str = REPO) -> tuple[str, float]:
+def run_cli(task_args: list, timeout: int = CLI_TIMEOUT, cwd: str = REPO,
+            env: dict | None = None) -> tuple[str, float]:
     """Run a port entry point as ``python -m ...`` in ``cwd`` (the repo's
-    root by default; the package is found through PYTHONPATH); fails on a
-    non-zero exit, and after ``timeout`` seconds kills it and every process
-    it started and fails with the end of its output.  Returns (stdout +
+    root by default; the package is found through PYTHONPATH), with ``env``
+    added to this process's environment, through ``nccl_probe.run_session``
+    (a session of its own, killed whole after ``timeout`` seconds); fails on
+    a non-zero exit or a kill with the end of its output.  Returns (stdout +
     stderr, seconds)."""
-    t0 = time.perf_counter()
     path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
-    # a session of its own: on a timeout the whole group goes (torchrun's workers too)
-    proc = subprocess.Popen([sys.executable, "-m", *task_args], cwd=cwd, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            start_new_session=True,
-                            env={**os.environ, "RA_TPU_NO_PDB": "1", "PYTHONPATH": path})
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
-        check(False, f"{' '.join(task_args[:3])} ran past {timeout} s:\n{out[-2000:]}\n"
-              f"{err[-6000:]}")
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    check(proc.returncode == 0, f"{' '.join(task_args[:3])} exited {proc.returncode}:\n"
-          f"{out[-2000:]}\n{err[-4000:]}")
-    return out + err, time.perf_counter() - t0
+    run = run_session([sys.executable, "-m", *task_args],
+                      {**os.environ, **(env or {}), "RA_TPU_NO_PDB": "1", "PYTHONPATH": path},
+                      timeout, cwd=cwd)
+    out, err = run["out"], run["err"]
+    if run["rc"] != 0:
+        # the progress lines ("[name] ...", each rank's too) before the tails,
+        # which a failed torchrun fills with its ranks' stacks
+        marks = "\n".join([line for line in (out + err).splitlines()
+                           if re.match(r"\[[\w -]+\] ", line)][-40:])
+        how = f"ran past {timeout} s" if run["killed"] else f"exited {run['rc']}"
+        check(False, f"{' '.join(task_args[:3])} {how}:\n{marks}\n{out[-2000:]}\n"
+              f"{err[-4000:]}")
+    return out + err, run["seconds"]
 
 
 def frame_ms(log: str, task: str) -> dict:
@@ -414,6 +419,16 @@ def eval_metrics(log: str) -> dict:
     return ast.literal_eval(m.group(1))
 
 
+def make_tree(tmp: str, size: int = golden.FRAME_SIZE) -> tuple[str, float]:
+    """[cli]'s tree, ``tmp/tubeman``: ``make_synthetic`` of CLI_FRAMES x
+    CLI_VIEWS images of ``size`` x ``size``.  Returns (its path, seconds)."""
+    data = os.path.join(tmp, "tubeman")
+    _, gen_s = run_cli(["relightableavatar_tpu_torch.data.make_synthetic", "--root", data,
+                        "--frames", str(CLI_FRAMES), "--views", str(CLI_VIEWS),
+                        "--size", str(size)])
+    return data, gen_s
+
+
 def cli_phase(smi: str, tmp: str, size: int = golden.FRAME_SIZE) -> tuple[int, float]:
     """The [cli] phase (see the module docstring) on a tree of ``size`` x
     ``size`` images that it generates in ``tmp/tubeman``, with the relight
@@ -422,10 +437,7 @@ def cli_phase(smi: str, tmp: str, size: int = golden.FRAME_SIZE) -> tuple[int, f
     version on its inputs."""
     t0 = time.perf_counter()
     max_err = 0.0
-    data = os.path.join(tmp, "tubeman")
-    _, gen_s = run_cli(["relightableavatar_tpu_torch.data.make_synthetic", "--root", data,
-                        "--frames", str(CLI_FRAMES), "--views", str(CLI_VIEWS),
-                        "--size", str(size)])
+    data, gen_s = make_tree(tmp, size)
     png = os.path.join(data, "images", f"{CLI_VIEW:02d}", "000000.png")
     rgb = read_rgb(png)
     rgba = np.concatenate([rgb, rgb[..., :1]], axis=-1)
@@ -771,6 +783,10 @@ def train_phase(smi: str, tmp: str) -> dict:
     check(len(rows) == 2 * TRAIN_CLI_ITERS and all(math.isfinite(r["loss"]) for r in rows),
           f"train's recorded losses: {[r.get('loss') for r in rows]}")
     it_s = [float(m) for m in re.findall(r"([\d.]+)s/it", log_t)]
+    # the log line's MFU: printed where the card's datasheet peak is known
+    mfus = [float(m) for m in re.findall(r" mfu ([\d.]+)%", log_t)]
+    check(bool(mfus) == (device_peaks("cuda") is not None),
+          f"the train CLI printed mfu {mfus} on a card whose peaks are {device_peaks('cuda')}")
     log_r, resume_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "True",
                                "train.epoch", "3"], timeout=CLI_TIMEOUT)
     with np.load(os.path.join(mdir, "latest.npz")) as f:
@@ -793,7 +809,9 @@ def train_phase(smi: str, tmp: str) -> dict:
           f"S={train_check.CHECK_S} ({t_check - t0:.1f} s in all): f32 loss rel, worst grad "
           f"rel, worst weight cosine {fmt(held['f32'])}; bf16 {fmt(held['bf16'])}; CLI train "
           f"2 epochs x {TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(
-              f"{x:.3f}" for x in it_s) + f"), resume 1 epoch {resume_s:.1f} s, run -t network "
+              f"{x:.3f}" for x in it_s) + "; mfu " + (", ".join(f"{x:.2f}%" for x in mfus)
+                                                   or "not printed: no peak for this card")
+          + f"), resume 1 epoch {resume_s:.1f} s, run -t network "
           f"from the trained checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
     return ret
 
@@ -901,6 +919,10 @@ def train_relight_phase(smi: str, tmp: str, geometry: str) -> dict:
     check(len(rows) == 2 * TRAIN_CLI_ITERS and all(math.isfinite(r["loss"]) for r in rows),
           f"stage-2 train's recorded losses: {[r.get('loss') for r in rows]}")
     it_s = [float(m) for m in re.findall(r"([\d.]+)s/it", log_t)]
+    # the log line's MFU: printed where the card's datasheet peak is known
+    mfus = [float(m) for m in re.findall(r" mfu ([\d.]+)%", log_t)]
+    check(bool(mfus) == (device_peaks("cuda") is not None),
+          f"the train CLI printed mfu {mfus} on a card whose peaks are {device_peaks('cuda')}")
     log_r, resume_s = run_cli(["relightableavatar_tpu_torch.train", *common, "resume", "True",
                                "train.epoch", "3"], timeout=CLI_TIMEOUT)
     with np.load(os.path.join(mdir, "latest.npz")) as f:
@@ -1071,24 +1093,38 @@ def options_phase(smi: str, ctx: dict, batch, n_fg: int) -> dict:
     return ret
 
 
-def multi_gpu_phase(smi: str, tmp: str, frame: dict, count: int) -> dict:
+def multi_gpu_phase(smi: str, tmp: str, frame: dict | None, count: int) -> dict:
     """The [multi-gpu] phase (see the module docstring): ``frame`` holds
-    [frame]'s single-process maps (numpy), ``tmp`` [cli]'s tree.  Returns
-    the ranks' K1 launches of the sharded frame and their dist_check lines."""
+    [frame]'s single-process maps (numpy; rendered here when None), ``tmp``
+    [cli]'s tree.  Returns the ranks' K1 launches of the sharded frame and
+    their dist_check lines."""
     t0 = time.perf_counter()
     W = min(count, MULTI_GPU_MAX)
-    ref = os.path.join(tmp, "dist_ref")
-    os.makedirs(ref)
-    np.savez(os.path.join(ref, "frame.npz"), **frame)
-    for stage in dist_check.STAGES:
-        trainer, batch = train_check.reference_step(stage, "cuda",
-                                                    record_dir=os.path.join(tmp, "dist_rec"))
-        check(trainer.mesh is None, "the in-process reference step took a ray mesh")
-        np.savez(os.path.join(ref, f"{stage}.npz"),
-                 **dist_check.step_arrays(train_check.step_result(trainer, batch)))
-        del trainer, batch
-    torch.cuda.empty_cache()
+    # NCCL alone over the W cards first: a failure here is the machine's
+    log_p, probe_s = run_cli(["relightableavatar_tpu_torch.eval.nccl_probe", "--nproc", str(W),
+                              "--settings", "default"], timeout=PROBE_TIMEOUT)
+    m = re.search(r"\[nccl-probe\] (\{.*\})", log_p)
+    check(m is not None, f"the NCCL probe printed no line:\n{log_p[-3000:]}")
+    probe = json.loads(m.group(1))
+    check(probe["ok"] and probe["world"] == W, f"the NCCL probe over {W} cards: {probe}")
+
+    # the sharded frame and steps against this process's for the same ranks
+    # and, over more than one, against its whole blocks and chunks
     t_ref = time.perf_counter()
+    ref = os.path.join(tmp, "dist_ref")
+    rec = os.path.join(tmp, "dist_rec")
+    os.makedirs(os.path.join(ref, "whole"))
+    whole = frame if frame is not None else dist_check.reference_frame(1)
+    refs = {"frame": whole if W == 1 else dist_check.reference_frame(W),
+            **dist_check.reference_steps(W, record_dir=rec)}
+    if W > 1:
+        refs.update({f"whole/{k}": v for k, v in
+                     dict(frame=whole, **dist_check.reference_steps(1, record_dir=rec)).items()})
+    for name, arrays in refs.items():
+        np.savez(os.path.join(ref, f"{name}.npz"), **arrays)
+    del refs, whole
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
     run = ["torch.distributed.run", "--standalone", "--nproc_per_node", str(W)]
     log_d, check_s = run_cli([*run, "-m", "relightableavatar_tpu_torch.eval.dist_check",
                               "--ref", ref], timeout=MULTI_GPU_TIMEOUT)
@@ -1103,8 +1139,6 @@ def multi_gpu_phase(smi: str, tmp: str, frame: dict, count: int) -> dict:
               and all(d[f"{st}_launches"] > 0 and d[f"{st}_all_reduces"] > 0
                       for st in dist_check.STAGES),
               f"rank {d['rank']}: the mesh path did not run: {d}")
-    r0 = lines[0]
-    t_check = time.perf_counter()
 
     # the train CLI under torchrun: 1 epoch, then a resume for a second
     data = os.path.join(tmp, "tubeman")
@@ -1132,6 +1166,8 @@ def multi_gpu_phase(smi: str, tmp: str, frame: dict, count: int) -> dict:
     rows = [json.loads(line) for line in open(scalars)]
     check(len(rows) == 2 * MULTI_GPU_ITERS and all(math.isfinite(r["loss"]) for r in rows),
           f"the resumed train CLI recorded {[r.get('loss') for r in rows]}")
+
+    r0 = lines[0]
     fmt = lambda d: ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
                               for k, v in d.items())
     per_rank = "; ".join(
@@ -1143,14 +1179,21 @@ def multi_gpu_phase(smi: str, tmp: str, frame: dict, count: int) -> dict:
             f"{d[st + '_all_reduces']}, gradient all-reduce {d[st + '_all_reduce_ms']:.3f} ms "
             f"for {d[st + '_all_reduce_bytes']} B" for st in dist_check.STAGES)
         + f"; {d['seconds']:.1f} s in all" for d in lines)
+    whole_text = "" if W == 1 else (
+        f"; rank 0 against one process of whole blocks and chunks (no bar): frame "
+        f"{fmt(r0['frame_whole_max_abs'])}; "
+        + "; ".join(f"{st} {fmt(r0[st + '_whole'])}" for st in dist_check.STAGES))
     phase("multi-gpu", t0, f"torchrun --nproc_per_node {W}, NCCL {r0['nccl']} ({smi}); "
-          f"in-process reference steps {t_ref - t0:.1f} s; dist_check {check_s:.1f} s: "
-          f"{per_rank}; rank 0 against one process: frame {fmt(r0['frame_max_abs'])}; "
-          + "; ".join(f"{st} {fmt(r0[st])}" for st in dist_check.STAGES)
-          + f" ({t_check - t0:.1f} s so far); train CLI 1 epoch x {MULTI_GPU_ITERS} its "
-          f"{train_s:.1f} s (losses " + ", ".join(f"{r['loss']:.5f}" for r in rows)
-          + f"), resume 1 epoch {resume_s:.1f} s")
-    return dict(launches=[d["frame_launches"] for d in lines], lines=lines)
+          f"NCCL probe (default setting) {probe_s:.1f} s: median ms " + ", ".join(
+              f"{k} {v:.3f}" for k, v in probe["ms"].items())
+          + f", transports {probe['transports']}; "
+          f"references in this process {ref_s:.1f} s; dist_check {check_s:.1f} s: "
+          f"{per_rank}; rank 0 against one process of {W} rank(s)' blocks and chunks: frame "
+          f"{fmt(r0['frame_max_abs'])}; "
+          + "; ".join(f"{st} {fmt(r0[st])}" for st in dist_check.STAGES) + whole_text
+          + f"; train CLI 1 epoch x {MULTI_GPU_ITERS} its {train_s:.1f} s (losses "
+          + ", ".join(f"{r['loss']:.5f}" for r in rows) + f"), resume 1 epoch {resume_s:.1f} s")
+    return dict(launches=[d["frame_launches"] for d in lines], lines=lines, probe=probe)
 
 
 def _card_vs_cpu(name: str, card: dict, cpu: dict, failed: list) -> tuple[float, float]:
@@ -1176,13 +1219,14 @@ def _card_vs_cpu(name: str, card: dict, cpu: dict, failed: list) -> tuple[float,
     return worst, spec
 
 
-def main() -> None:
-    # ---- device
+def device_and_build() -> tuple[str, int, str]:
+    """The [device] and [build] phases; exits 2 without a CUDA device.
+    Returns the card's name, the card count and nvidia-smi's name and power
+    limit."""
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs on a GPU only", file=sys.stderr)
         sys.exit(2)
-    dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi("name,power.limit")
@@ -1191,13 +1235,33 @@ def main() -> None:
           f"{clocks}; python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # ---- build
     t0 = time.perf_counter()
     kern = knn_cuda.KNN_TOP3.load()
     for line in kern.build_log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"[build] ptxas: {line.strip()}", flush=True)
     phase("build", t0, f"{kern.path} built in {kern.build_seconds:.2f} s")
+    return kind, count, smi
+
+
+def multi_gpu_main() -> None:
+    """``python3 chip_smoke.py --multi-gpu``: [device], [build], [cli]'s
+    tree, then [multi-gpu] over min(card count, MULTI_GPU_MAX) cards; the
+    last two lines as the whole run's, without the kernels line."""
+    kind, count, smi = device_and_build()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as tmp:
+        _, gen_s = make_tree(tmp)
+        phase("cli", t0, f"make_synthetic {CLI_FRAMES}x{CLI_VIEWS} {gen_s:.1f} s")
+        multi_gpu_phase(smi, tmp, None, count)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+
+
+def main() -> None:
+    kind, count, smi = device_and_build()
+    dev = torch.device("cuda")
 
     # ---- fixture
     t0 = time.perf_counter()
@@ -1659,4 +1723,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--multi-gpu"]:
+        multi_gpu_main()
+    elif sys.argv[1:]:
+        sys.exit("usage: python3 chip_smoke.py [--multi-gpu]")
+    else:
+        main()

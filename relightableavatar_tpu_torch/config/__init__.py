@@ -185,7 +185,8 @@ def maybe_init_distributed(device="cuda", local_rank: int | None = None,
     """Join the process group of a multi-process launch (:func:`dist_env`),
     the reference's ``torchrun ... distributed True``
     (``train.py:116-122``): NCCL for a CUDA ``device``, each process on the
-    card ``LOCAL_RANK``, gloo for the CPU.  Collectives time out after
+    card ``LOCAL_RANK`` and its communicators bound to it (``device_id``),
+    gloo for the CPU.  Collectives time out after
     ``timeout_s`` seconds, so a rank that never arrives fails the run
     instead of hanging it.  A no-op returning False for a single process;
     True once the group exists."""
@@ -197,16 +198,19 @@ def maybe_init_distributed(device="cuda", local_rank: int | None = None,
     if env is None:
         return False
     os.environ.update(env)
+    kw = {}
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA process group was asked for but torch finds no CUDA "
                                "device")
         torch.cuda.set_device(int(env["LOCAL_RANK"]))
         backend = "nccl"
+        # binds the communicators to this card: a barrier need not guess it
+        kw["device_id"] = torch.device("cuda", int(env["LOCAL_RANK"]))
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method="env://", world_size=int(env["WORLD_SIZE"]),
-                            rank=int(env["RANK"]), timeout=timedelta(seconds=timeout_s))
+                            rank=int(env["RANK"]), timeout=timedelta(seconds=timeout_s), **kw)
     log(f"distributed: rank {env['RANK']} of {env['WORLD_SIZE']} ({backend}), node "
         f"{env['GROUP_RANK']}, local rank {env['LOCAL_RANK']} @ "
         f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}", "yellow")

@@ -13,29 +13,43 @@ card and
 - runs the float32 reference stage-1 and stage-2 steps
   (``train_check.reference_step``) through the distributed ``Trainer``.
 
-Rank 0 holds the frame's maps to ``DIR/frame.npz`` (the single-process
-render) within FRAME_ATOL, ``spec_map`` at the frame tests' PSNR bar
-(it divides by |ldot| + 1e-8: ROADMAP, "spec_map parity"), and each step's
-loss and gradients to ``DIR/stage1.npz`` and ``DIR/stage2.npz`` (the
-single-process steps): the loss within LOSS_REL, every gradient within
-GRAD_REL of its largest entry.  Every rank fails unless the mesh path ran:
-a process group, the renderer's mesh of the whole world, at least one
-gather in the frame and one gradient all-reduce a step, K1 launched in the
-frame.  Each rank prints one line ``[dist-check] {json}``: world, backend,
-NCCL version, its card, seconds, K1 launches and collectives of the frame
-and each step, and (rank 0) the comparisons.  Each rank also prints its progress to stderr, a hung
-collective fails after COLLECTIVE_TIMEOUT_S, and a rank still running after
-WATCHDOG_S prints every thread's stack and exits.
+Rank 0 holds them to what one process on one card computes for the same
+ranks (``DIR/frame.npz``, ``DIR/stage1.npz``, ``DIR/stage2.npz``): the
+frame's maps to :func:`reference_frame` within FRAME_ATOL, ``spec_map`` at
+the frame tests' PSNR bar (it divides by |ldot| + 1e-8: ROADMAP, "spec_map
+parity"), each step's loss to :func:`reference_steps` within LOSS_REL and
+every gradient within GRAD_REL of its largest entry.  Rank r of W renders
+and trains on slice r of every ray block and chunk, so its float32
+products have a W-th of the rows of one process's whole blocks, and
+round otherwise where cuBLAS picks its kernels by shape: the references
+are made with those shapes.  Where ``DIR/whole/`` holds the frame and
+steps of whole blocks and chunks in one process, rank 0 also prints how
+far the ranks are from them (``*_whole``), without a bar.  Every rank
+fails unless the mesh path ran: a process group, the renderer's mesh of
+the whole world, at least one gather in the frame and one gradient
+all-reduce a step, K1 launched in the frame.  Each rank prints one line
+``[dist-check] {json}``: world, backend, NCCL version, its card, seconds,
+K1 launches and collectives of the frame and each step, and (rank 0) the
+comparisons and the ones beyond their bars (``failures``): rank 0 goes on
+through every collective after a failed comparison and fails at the end
+with all of them.  Each rank also prints its progress to stderr, a hung
+collective fails after COLLECTIVE_TIMEOUT_S, and a rank still running
+after WATCHDOG_S prints every thread's stack and exits.  A rank that
+raises prints its traceback and exits at once, without destroying the
+process group (which could wait on ranks that wait in a collective for
+this one), and torchrun ends the others.
 """
 from __future__ import annotations
 
 import argparse
 import faulthandler
 import json
-import sys
 import os
 import statistics
+import sys
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -85,41 +99,131 @@ def step_arrays(res: dict) -> dict:
             **{f"grad/{k}": g.numpy() for k, g in res["grads"].items()}}
 
 
-def compare_frame(maps: dict, ref: dict) -> dict:
-    """Per map: max |diff| (spec_map: its PSNR in dB); fails beyond the bars."""
+def compare_frame(maps: dict, ref: dict) -> tuple[dict, list]:
+    """Per map: max |diff| (spec_map: its PSNR in dB), and a message for
+    each map beyond its bar."""
     if set(maps) != set(ref):
-        _fail(f"frame maps {sorted(maps)} against the single-process {sorted(ref)}")
-    out = {}
+        return {}, [f"frame maps {sorted(maps)} against the single-process {sorted(ref)}"]
+    out, failures = {}, []
     for k, v in maps.items():
         if v.shape != ref[k].shape:
-            _fail(f"frame {k}: shape {v.shape} against {ref[k].shape}")
-        if k == "spec_map":
+            failures.append(f"frame {k}: shape {v.shape} against {ref[k].shape}")
+        elif k == "spec_map":
             out[k + "_db"] = golden.psnr(v, ref[k])
             if out[k + "_db"] < FRAME_MIN_PSNR_SPEC:
-                _fail(f"frame spec_map {out[k + '_db']:.2f} dB < {FRAME_MIN_PSNR_SPEC}")
+                failures.append(f"frame spec_map {out[k + '_db']:.2f} dB < "
+                                f"{FRAME_MIN_PSNR_SPEC}")
         else:
-            out[k] = float(np.abs(v - ref[k]).max()) if v.size else 0.0
+            diff = np.abs(v - ref[k]).reshape(len(v), -1).max(axis=1) if v.size else v
+            out[k] = float(diff.max()) if v.size else 0.0
             if out[k] > FRAME_ATOL:
-                _fail(f"frame {k}: max |diff| {out[k]:.3e} > {FRAME_ATOL} from one process")
-    return out
+                failures.append(f"frame {k}: max |diff| {out[k]:.3e} > {FRAME_ATOL} from one "
+                                f"process on {int((diff > FRAME_ATOL).sum())} of {len(v)} rays")
+    return out, failures
 
 
-def compare_step(stage: str, got: dict, ref: dict) -> dict:
+def compare_step(stage: str, got: dict, ref: dict) -> tuple[dict, list]:
     """Loss relative difference and the worst gradient's max |diff| / max
-    |ref|; fails beyond LOSS_REL and GRAD_REL."""
+    |ref|, and a message when beyond LOSS_REL or GRAD_REL."""
     loss_rel = abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
     grads = [k for k in ref if k.startswith("grad/")]
     if sorted(grads) != sorted(k for k in got if k.startswith("grad/")):
-        _fail(f"{stage}: other parameters than the single-process step's")
+        return {}, [f"{stage}: other parameters than the single-process step's"]
     worst, worst_k = 0.0, None
     for k in grads:
         rel = float(np.abs(got[k] - ref[k]).max() / max(np.abs(ref[k]).max(), 1e-30))
         if rel >= worst:
             worst, worst_k = rel, k[5:]
+    failures = []
     if not (loss_rel <= LOSS_REL and worst <= GRAD_REL):
-        _fail(f"{stage}: loss rel {loss_rel:.3e} (bar {LOSS_REL}), worst gradient {worst_k} "
-              f"{worst:.3e} (bar {GRAD_REL}) from the single-process step")
-    return dict(loss_rel=loss_rel, worst_grad_rel=worst, worst_grad=worst_k)
+        failures.append(f"{stage}: loss rel {loss_rel:.3e} (bar {LOSS_REL}), worst gradient "
+                        f"{worst_k} {worst:.3e} (bar {GRAD_REL}) from the single-process step")
+    return dict(loss_rel=loss_rel, worst_grad_rel=worst, worst_grad=worst_k), failures
+
+
+def reference_frame(world: int, device="cuda") -> dict:
+    """The exact frame's maps in one process with blocks of ``ray_block /
+    world`` rays: block i of these is slice i % world of the ranks' block
+    i // world, rendered through the same operations on as many rows."""
+    cfg = golden.frame_cfg()
+    cfg.tpu.ray_block = int(cfg.tpu.ray_block) // world
+    ctx, params, mcfg = golden.load_fixture(cfg, device=device)
+    batch, _ = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
+    return frame_maps(SphereTracingRenderer(cfg, params, mcfg, device=device).render(batch))
+
+
+def emulate_ranks(world: int, fn) -> list:
+    """``fn()``'s result on each of ``world`` ranks that are threads of this
+    process, joined in torch's threaded process group: every rank runs the
+    operations of a process of a ``world``-rank launch on the same shapes,
+    and the group's collectives sum in rank order on the tensors' own
+    device.  Raises the first exception a rank raised (the others leave
+    their collectives)."""
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+    results, errors = [None] * world, []
+    store = dist.HashStore()
+
+    def rank(r: int) -> None:
+        dist.init_process_group("threaded", rank=r, world_size=world, store=store)
+        try:
+            results[r] = fn()
+        except BaseException as e:          # noqa: BLE001 (raised below)
+            errors.append(e)
+            mtpg.ProcessLocalGroup.exception_handle(e)
+        finally:
+            try:
+                dist.destroy_process_group()
+            except AttributeError:
+                pass    # a threaded world without the `comms` list destroy reads
+
+    mtpg._install_threaded_pg()
+    # each thread registers its group's name in a registry of its own
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    try:
+        threads = [threading.Thread(target=rank, args=(r,)) for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        mtpg.ProcessLocalGroup.reset()
+        mtpg._uninstall_threaded_pg()
+    if errors:
+        raise next((e for e in errors if not isinstance(e, SystemExit)), errors[0])
+    return results
+
+
+def reference_steps(world: int, device="cuda", record_dir: str | None = None) -> dict:
+    """stage -> :func:`step_arrays` of the float32 reference step, as
+    ``world`` ranks compute it: in this process alone for one, else over
+    :func:`emulate_ranks` (every rank's result must be the same)."""
+    def steps() -> dict:
+        out = {}
+        for stage in STAGES:
+            trainer, batch = train_check.reference_step(stage, device, record_dir=record_dir)
+            if (trainer.mesh.world if trainer.mesh is not None else 1) != world:
+                _fail(f"the reference {stage} step took the mesh {trainer.mesh}")
+            out[stage] = step_arrays(train_check.step_result(trainer, batch))
+        return out
+
+    if world == 1:
+        return steps()
+    ranks = emulate_ranks(world, steps)
+    for r, res in enumerate(ranks[1:], 1):
+        for stage, arrays in res.items():
+            if any(not np.array_equal(v, ranks[0][stage][k]) for k, v in arrays.items()):
+                _fail(f"emulated rank {r}'s {stage} step differs from rank 0's")
+    return ranks[0]
+
+
+def _whole(ref: str, name: str) -> dict | None:
+    """``ref/whole/name``'s arrays, or None without it."""
+    path = os.path.join(ref, "whole", name)
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
 
 
 def main(argv=None) -> None:
@@ -172,22 +276,30 @@ def main(argv=None) -> None:
                                                      for t in share])
         line["frame_gather_bytes"] = sum(t.numel() * 4 for t in share) * world
         del share
+        progress(f"frame gathers timed, {len(renderer.mesh.issued)} collectives", t0)
+        failures = []          # rank 0's comparisons, failed at the end
         if rank == 0:
             with np.load(os.path.join(args.ref, "frame.npz")) as f:
-                line["frame_max_abs"] = compare_frame(maps, {k: f[k] for k in f.files})
+                line["frame_max_abs"], bad = compare_frame(maps, {k: f[k] for k in f.files})
+            failures += bad
+            whole = _whole(args.ref, "frame.npz")
+            if whole is not None:
+                line["frame_whole_max_abs"] = compare_frame(maps, whole)[0]
+            progress("frame compared", t0)
         del out, maps, renderer, params, ctx
         torch.cuda.empty_cache()
 
         for stage in STAGES:
             trainer, tbatch = train_check.reference_step(stage, "cuda")
             torch.cuda.synchronize()
+            progress(f"{stage} trainer built, {len(trainer.mesh.issued)} collectives", t0)
             knn_cuda.KNN_TOP3.launches = 0
             reduces = trainer.mesh.counts["all_reduce"]
             t1 = time.perf_counter()
             res = train_check.step_result(trainer, tbatch)
             torch.cuda.synchronize()
             line[f"{stage}_s"] = time.perf_counter() - t1
-            progress(f"{stage} stepped", t0)
+            progress(f"{stage} stepped, {len(trainer.mesh.issued)} collectives", t0)
             line[f"{stage}_launches"] = knn_cuda.KNN_TOP3.launches
             line[f"{stage}_all_reduces"] = trainer.mesh.counts["all_reduce"] - reduces
             if line[f"{stage}_launches"] == 0 or line[f"{stage}_all_reduces"] == 0:
@@ -197,18 +309,32 @@ def main(argv=None) -> None:
             line[f"{stage}_all_reduce_ms"] = median_ms(lambda: all_reduce_(trainer.mesh, grads))
             line[f"{stage}_all_reduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
             del grads
+            progress(f"{stage} gradient all-reduce timed", t0)
             if rank == 0:
                 with np.load(os.path.join(args.ref, f"{stage}.npz")) as f:
-                    line[stage] = compare_step(stage, step_arrays(res),
-                                               {k: f[k] for k in f.files})
+                    line[stage], bad = compare_step(stage, step_arrays(res),
+                                                    {k: f[k] for k in f.files})
+                failures += bad
+                whole = _whole(args.ref, f"{stage}.npz")
+                if whole is not None:
+                    line[f"{stage}_whole"] = compare_step(stage, step_arrays(res), whole)[0]
             del trainer, tbatch, res
             torch.cuda.empty_cache()
         line["seconds"] = time.perf_counter() - t0
+        line["failures"] = failures
         print("[dist-check] " + json.dumps(line), flush=True)
         dist.barrier()
-    finally:
-        dist.destroy_process_group()
-        faulthandler.cancel_dump_traceback_later()
+    except BaseException:
+        # leave at once: destroy_process_group could wait on the ranks that
+        # wait in a collective for this one (torchrun ends them)
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    if failures:
+        _fail("; ".join(failures))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ equals the single-device one.
 Only collectives that both gloo (the CPU, the tests) and NCCL (the card)
 have are used: ``all_gather``, ``all_reduce``, ``broadcast`` and
 ``barrier``.  A mesh counts the collectives it issues (``RayMesh.counts``),
-so a run can show that the mesh path ran and not the plain one.
+so a run can show that the mesh path ran and not the plain one, and keeps
+their sequence (``RayMesh.issued``: op, element count, dtype), which must be
+the same on every rank: a collective that one rank skips hangs the others.
 """
 from __future__ import annotations
 
@@ -32,6 +34,12 @@ class RayMesh:
     device: torch.device
     counts: dict = field(default_factory=lambda: {"gather": 0, "all_reduce": 0,
                                                   "broadcast": 0})
+    issued: list = field(default_factory=list)
+
+    def record(self, kind: str, op: str, t: torch.Tensor) -> None:
+        """Count a collective of ``kind`` and append (op, numel, dtype)."""
+        self.counts[kind] += 1
+        self.issued.append((op, t.numel(), str(t.dtype)))
 
 
 def distributed() -> bool:
@@ -122,7 +130,7 @@ def gather_rays(mesh: RayMesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.world)]
     dist.all_gather(parts, x, group=mesh.group)
-    mesh.counts["gather"] += 1
+    mesh.record("gather", "all_gather", x)
     return torch.cat(parts, dim=axis)
 
 
@@ -137,7 +145,7 @@ def all_sum(mesh: RayMesh, x: torch.Tensor) -> torch.Tensor:
         return x
     total = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(total, group=mesh.group)
-    mesh.counts["all_reduce"] += 1
+    mesh.record("all_reduce", "all_reduce", total)
     return total + (x - x.detach()) if x.requires_grad else total
 
 
@@ -151,7 +159,7 @@ def all_reduce_(mesh: RayMesh, tensors: list) -> None:
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
         dist.all_reduce(flat, group=mesh.group)
-        mesh.counts["all_reduce"] += 1
+        mesh.record("all_reduce", "all_reduce", flat)
         off = 0
         for t in ts:
             t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -167,7 +175,7 @@ def replicate(mesh: RayMesh, tensors: list) -> None:
         for t in tensors:
             buf = t.data.contiguous()
             dist.broadcast(buf, src=0, group=mesh.group)
-            mesh.counts["broadcast"] += 1
+            mesh.record("broadcast", "broadcast", buf)
             if buf.data_ptr() != t.data.data_ptr():
                 t.data.copy_(buf)
 

@@ -54,7 +54,8 @@ from relightableavatar_tpu_torch.train.checkpoints import named_params
 from relightableavatar_tpu_torch.train.loss import anisdf_losses, loss_weights_from_cfg
 from relightableavatar_tpu_torch.train.optimizer import TrainOptimizer, make_lr_schedule
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
-from relightableavatar_tpu_torch.utils.flops import relight_step_flops, train_step_flops
+from relightableavatar_tpu_torch.utils.flops import (device_peaks, rate_text,
+                                                     relight_step_flops, train_step_flops)
 from relightableavatar_tpu_torch.utils.log import log
 from relightableavatar_tpu_torch.utils.profiling import Profiler
 
@@ -205,6 +206,7 @@ class Trainer:
             log(f"training over {W}-device mesh: rays sharded, params replicated "
                 "(grad all-reduce)", 'green')
         self.recorder = Recorder(cfg, write=process_rank() == 0)
+        self.peaks = device_peaks(self.device)      # the log line's MFU denominator
         self.weights = loss_weights_from_cfg(cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.get('seed', 42)))
@@ -310,6 +312,13 @@ class Trainer:
                                   n_verts, self.st_surf.iter, self.st_obj.iter,
                                   self.shadow_rays)
 
+    def rate_text(self, flops: int, seconds: float) -> str:
+        """The log line's rate of a step of ``flops`` (every rank's rays,
+        :meth:`step_flops`) in ``seconds``: its MFU is against the peak of
+        every card of the mesh."""
+        return rate_text(flops, seconds, self.peaks,
+                         self.mesh.world if self.mesh is not None else 1)
+
     # ------------------------------------------------------- full-state aux
     def aux_state(self, it_in_epoch: int = 0) -> dict:
         """JSON training state beyond the network and optimiser: the
@@ -392,10 +401,9 @@ class Trainer:
                 dt = (time.perf_counter() - t_iter) / cfg.log_interval
                 t_iter = time.perf_counter()
                 self.recorder.update(dict(zip(stats.keys(), (float(v) for v in vals))))
-                tf = step_flops / 1e12
                 log(f"ep {epoch} it {it}/{ep_iter} lr {self._lr_sched(self.recorder.step):.3e} "
-                    f"{self.recorder} {dt:.3f}s/it {tf:.3f} TFLOP/step (analytic) "
-                    f"{tf / dt:.2f} TFLOP/s eta {dt * (ep_iter - it):.0f}s", 'cyan')
+                    f"{self.recorder} {dt:.3f}s/it {self.rate_text(step_flops, dt)} "
+                    f"eta {dt * (ep_iter - it):.0f}s", 'cyan')
             if it % cfg.record_interval == 0:
                 self.recorder.record()
             if save_cb is not None and save_iter > 0 and it % save_iter == 0 and it < ep_iter:

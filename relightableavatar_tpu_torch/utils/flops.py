@@ -1,14 +1,61 @@
-"""Analytic FLOP counts (``relightableavatar_tpu/utils/flops.py``).
+"""Analytic FLOP counts and utilizations (``relightableavatar_tpu/utils/flops.py``).
 
 The JAX package also reads XLA's cost model of a compiled step
 (``compiled_cost``), which has no counterpart for eager torch: here it is a
 logged no-op.  The achieved rate a log line prints is the analytic count
-over the measured time; no peak of any device is assumed here.
+over the measured time; its ``mfu`` is that rate over the card's dense
+bf16 peak where :data:`DEVICE_PEAKS` knows the card, and is left out
+elsewhere (the CPU, another card): no TPU constant stands in.
 """
 from __future__ import annotations
 
+import torch
+
 from relightableavatar_tpu_torch.ops.embedder import embed_dim
 from relightableavatar_tpu_torch.utils.log import log
+
+# peaks by ``torch.cuda.get_device_name``: NVIDIA's H100 datasheet for the
+# SXM part at its 700 W limit, the dense bf16 tensor-core rate (no
+# sparsity), FP32 outside the tensor cores and the HBM3 bandwidth.
+# Datasheet figures, not measurements; a card set below 700 W runs below
+# them.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": dict(bf16=989e12, fp32=67e12, hbm=3.35e12),
+}
+
+
+def device_peaks(device) -> dict | None:
+    """The datasheet peaks of ``device``'s card (:data:`DEVICE_PEAKS`), or
+    None for the CPU and for a card not in the table."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return DEVICE_PEAKS.get(torch.cuda.get_device_name(device))
+
+
+def hbm_util(nbytes: float | None, seconds: float, bw: float | None) -> float | None:
+    """HBM bandwidth utilization in percent (memory roofline); None without
+    bytes, time or bandwidth."""
+    if not nbytes or seconds <= 0 or not bw:
+        return None
+    return 100.0 * nbytes / seconds / bw
+
+
+def mfu(flops: float | None, seconds: float, peak: float | None) -> float | None:
+    """Model FLOP utilization in percent; None without FLOPs, time or peak."""
+    if not flops or seconds <= 0 or not peak:
+        return None
+    return 100.0 * flops / seconds / peak
+
+
+def rate_text(flops: float, seconds: float, peaks: dict | None, cards: int = 1) -> str:
+    """A step's analytic TFLOP, its TFLOP/s and, with ``peaks``, its MFU
+    against the dense bf16 peak of ``cards`` cards (the ranks that shared
+    the step's FLOPs), as the trainer's log line prints them."""
+    tf = flops / 1e12
+    m = mfu(flops, seconds, peaks["bf16"] * cards) if peaks else None
+    return (f"{tf:.3f} TFLOP/step (analytic) {tf / seconds:.2f} TFLOP/s"
+            + (f" mfu {m:.1f}%" if m is not None else ""))
 
 
 def compiled_cost(*args, **kwargs) -> dict:

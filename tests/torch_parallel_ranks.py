@@ -1,5 +1,6 @@
-"""The rank side of ``tests/test_torch_parallel.py``: what each of 2 gloo
-ranks runs, started by ``torch.multiprocessing`` with the spawn method.
+"""The rank side of ``tests/test_torch_parallel.py``: what each of W gloo
+ranks (2 by default, WORLD) runs, started by ``torch.multiprocessing`` with
+the spawn method.
 
 This module imports neither jax nor the JAX package, so the ranks do not
 either: the test process computes the JAX results and hands the ranks their
@@ -7,7 +8,8 @@ inputs as ``.npz`` files in a folder; each rank writes its results there as
 ``<case>_rank<r>.npz`` for the test process to compare.  Each rank joins the
 group through ``config.maybe_init_distributed`` on the CPU (gloo) at
 ``127.0.0.1:<port>`` with a 60 s collective timeout, and runs 2 torch
-threads.
+threads.  Each case also writes the sequence of collectives every mesh it
+used issued (``RayMesh.issued``), which must be the same on every rank.
 """
 import os
 import sys
@@ -20,7 +22,7 @@ from relightableavatar_tpu_torch.eval import golden
 from relightableavatar_tpu_torch.parallel import mesh as pm
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 
-WORLD = 2
+WORLD = 2                # ranks of a spawn unless it asks for another count
 TIMEOUT_S = 60           # init_process_group's: a hung collective fails the rank
 FRAME_SIZE = 16          # 40 rays in the body's bounds: two blocks of 32
 FRAME_BLOCK = 32
@@ -78,14 +80,19 @@ def _tensors(d: dict, dtype=None) -> dict:
 
 
 # ---------------------------------------------------------------- cases
-def case_render(rank: int, folder: str) -> dict:
+def issued(mesh) -> np.ndarray:
+    """A mesh's collectives as ``op:numel:dtype`` strings, in order."""
+    return np.array([f"{op}:{n}:{dt}" for op, n, dt in mesh.issued], dtype=str)
+
+
+def case_render(rank: int, folder: str, world: int) -> dict:
     """The mesh helpers, the sharded exact frame and the sharded sweep."""
     from relightableavatar_tpu_torch.data.datasets import TrainSampler
     from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                                  SphereTracingRenderer)
     res = {}
     mesh = pm.get_mesh()
-    assert (mesh.rank, mesh.world) == (rank, WORLD)
+    assert (mesh.rank, mesh.world) == (rank, world)
     # all_sum: the global value on every rank, the gradient of the own part
     x = torch.tensor([1.0 + rank, 2.0], requires_grad=True)
     y = pm.all_sum(mesh, 2 * x)
@@ -101,11 +108,12 @@ def case_render(rank: int, folder: str) -> dict:
     pm.replicate(mesh, [ref, strided])
     res['replicated'] = ref.numpy()
     res['replicated_strided'] = strided.numpy()
+    res['issued/helpers'] = issued(mesh)
     cfg = golden.fixture_cfg()
-    cfg.tpu.mesh_shape = [WORLD]
+    cfg.tpu.mesh_shape = [world]
     pm.get_mesh(cfg)
     try:
-        cfg.tpu.mesh_shape = [4]
+        cfg.tpu.mesh_shape = [2 * world]
         pm.get_mesh(cfg)
     except ValueError as e:
         res['mesh_shape_error'] = np.array(str(e))
@@ -124,22 +132,27 @@ def case_render(rank: int, folder: str) -> dict:
     res.update(flat_arrays(out, "frame/"))
     res['frame_blocks'] = np.array(r.last_frame.blocks)
     res['frame_gathers'] = np.array(r.mesh.counts['gather'])
+    res['issued/frame'] = issued(r.mesh)
 
     cfg = sweep_cfg(golden.fixture_cfg())
     ctx, params, mcfg = golden.load_fixture(cfg, device="cpu")
     batch, _ = golden.frame_batch(ctx, FRAME_SIZE, FRAME_SIZE)
     with np.load(os.path.join(folder, "lights.npz")) as f:
         batch.novel_lights = {n: read_group(f, n + "/") for n in LIGHTS}
-    out = NovelLightRenderer(cfg, params, mcfg, device="cpu").render(batch)
+    r = NovelLightRenderer(cfg, params, mcfg, device="cpu")
+    out = r.render(batch)
+    res['issued/sweep'] = issued(r.mesh)
     res.update(flat_arrays(out.base, "base/"))
     for name, frame in out.novel_light.items():
         res.update(flat_arrays(frame, f"novel/{name}/"))
     return res
 
 
-def _steps(rank: int, folder: str, stage: str) -> dict:
+def _steps(rank: int, folder: str, stage: str, world: int) -> dict:
     """The train steps of the npz ``<stage>_inputs.npz``: each named batch
-    from the same flat parameters, float64, through a fresh Trainer."""
+    from the same flat parameters, float64, through a fresh Trainer.  For
+    stage 2 also the shadow rays this rank traced in each frame, before the
+    sum over the ranks."""
     from relightableavatar_tpu_torch.config import default_cfg
     from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
     from relightableavatar_tpu_torch.train import checkpoints
@@ -161,8 +174,18 @@ def _steps(rank: int, folder: str, stage: str) -> dict:
         params = _cast(checkpoints.params_from_flat(flat, device="cpu", mcfg=mcfg),
                        torch.float64)
         trainer = Trainer(cfg, params, mcfg, device="cpu")
-        assert trainer.mesh is not None and trainer.mesh.world == WORLD
+        assert trainer.mesh is not None and trainer.mesh.world == world
         batch = _batch(trainer, inputs, run)
+        own_shadow = []
+        if trainer.relight:
+            forward = trainer._frame_forward
+
+            def counted(*a, forward=forward, trainer=trainer):
+                before = trainer.shadow_rays
+                out = forward(*a)
+                own_shadow.append(trainer.shadow_rays - before)
+                return out
+            trainer._frame_forward = counted
         noise = inputs.get(f'{run}/noise')
         stats = trainer.step(batch, 0, jitter_noise=None if noise is None
                              else torch.as_tensor(noise))
@@ -171,8 +194,10 @@ def _steps(rank: int, folder: str, stage: str) -> dict:
             res[f'{run}/grad/{k}'] = t.grad.numpy()
             res[f'{run}/param/{k}'] = t.detach().numpy()
         res[f'{run}/all_reduces'] = np.array(trainer.mesh.counts['all_reduce'])
+        res[f'{run}/issued'] = issued(trainer.mesh)
         if trainer.relight:
             res[f'{run}/shadow_rays'] = np.array(trainer.shadow_rays)
+            res[f'{run}/own_shadow_rays'] = np.array(own_shadow)
         if stage == "stage2" and run == runs[0]:
             res.update(_checkpoint_round(trainer, cfg, mcfg, flat, folder))
     return res
@@ -260,22 +285,29 @@ def relight_cfg(c, record_dir: str):
     return c
 
 
+def case_steps(rank: int, folder: str, world: int) -> dict:
+    """Both stages' steps in one spawn, keyed ``stage1/...`` and ``stage2/...``."""
+    return {f"{stage}/{k}": v for stage in ("stage1", "stage2")
+            for k, v in _steps(rank, folder, stage, world).items()}
+
+
 CASES = {'render': case_render,
-         'stage1': lambda rank, folder: _steps(rank, folder, "stage1"),
-         'stage2': lambda rank, folder: _steps(rank, folder, "stage2")}
+         'stage1': lambda rank, folder, world: _steps(rank, folder, "stage1", world),
+         'stage2': lambda rank, folder, world: _steps(rank, folder, "stage2", world),
+         'steps': case_steps}
 
 
-def run_rank(rank: int, case: str, folder: str, port: int) -> None:
-    """Entry of one spawned rank: join the gloo group of ``WORLD`` ranks on
+def run_rank(rank: int, case: str, folder: str, port: int, world: int = WORLD) -> None:
+    """Entry of one spawned rank: join the gloo group of ``world`` ranks on
     one node, run ``case`` and write its results."""
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(WORLD), GROUP_RANK="0")
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), GROUP_RANK="0")
     torch.set_num_threads(2)
     assert 'jax' not in sys.modules
     assert maybe_init_distributed(device="cpu", timeout_s=TIMEOUT_S)
     try:
-        res = CASES[case](rank, folder)
+        res = CASES[case](rank, folder, world)
         assert 'jax' not in sys.modules
         np.savez(os.path.join(folder, f"{case}_rank{rank}.npz"), **res)
     finally:
