@@ -53,6 +53,13 @@ Phases, each printing one flushed line with its wall seconds:
           VolumeRenderer.render: seconds, rays/s, KNN launches, peak memory,
           culled against exact; then the 32x32 volume frame on the card
           against the CPU
+  golden-512  bench.py's headline frame (``golden.golden512_cfg()``: the
+          acceleration stack, exact camera trace, bfloat16 MLPs) at 512x512
+          through ``eval/check_golden_512.py``, its KNN launches counted,
+          > 45 dB over the whole frame against the JAX package's CPU render
+          tests/golden_relight_512_jaxcpu.npy; the PSNR against the stored
+          fixtures/golden_relight_512.png printed (stale against the JAX
+          package at HEAD: its own render is 41.75 dB from it)
   knn-frame  the kernel bit for bit against the plain version on the
           recorded frame inputs (the bake's 180,224 points and the volume's
           first and last 1,048,576-point blocks included), its time on each
@@ -64,9 +71,9 @@ Phases, each printing one flushed line with its wall seconds:
           as the checkpoint that ``make_network`` finds, then
           ``python -m relightableavatar_tpu_torch.run -t`` dataset, network
           (its mean render time), evaluate at the generator's exact settings
-          with mask_bkgd off (>= 50 dB against the generated images), evaluate with the
-          config's own defaults (printed, not held), visualize (one file per
-          enabled Output type per frame); then the first CLI frame rendered
+          with mask_bkgd off (>= 50 dB against the generated images),
+          visualize (one file per enabled Output type per frame; [e2e]
+          evaluates at the config's own defaults); then the first CLI frame rendered
           in this process, its KNN launches counted, the kernel bit for bit
           against the plain version on its recorded inputs
   mesh    on the tree [cli] generated, the tasks as subprocesses whose working
@@ -102,8 +109,9 @@ Phases, each printing one flushed line with its wall seconds:
           CPU's); then on [cli]'s tree ``python -m
           relightableavatar_tpu_torch.train`` (exp_name tubeman_verify, a
           temporary trained_model_dir, 2 epochs of 3 iterations: finite
-          losses, the epoch files), ``resume True`` for a third epoch, and
-          ``run -t network`` from the trained checkpoint
+          losses, the epoch files) and ``resume True`` for a third epoch
+          ([e2e]'s evaluations render from trained checkpoints of both
+          stages)
   train-relight  stage-2 training (``eval/train_check.py``): the reference
           relight step (2 frames x 1024 rays, 16 surface and 4 shadow
           iterations, 16 x 32 light texels, shadow blocks of 32,768 rays,
@@ -122,8 +130,20 @@ Phases, each printing one flushed line with its wall seconds:
           together, >= 0.995); then on [cli]'s tree ``python -m
           relightableavatar_tpu_torch.train relighting True
           geometry_pretrain <[train]'s checkpoint>`` (2 epochs of 3
-          iterations), ``resume True`` for a third epoch, and ``run -t
-          network relighting True`` from the stage-2 checkpoint
+          iterations) and ``resume True`` for a third epoch
+  e2e     the two-stage pipeline on [cli]'s tree, ``python -m
+          relightableavatar_tpu_torch.train.e2e`` in the temporary directory
+          (generation skipped: the tree has images), stage 1 seeded with the
+          fixture's geometry and resumed for 1 epoch of 3 iterations, the
+          volume evaluation, the 5 mm canonical mesh, stage 2 on that mesh as
+          the geometry prior for 1 epoch of 3 iterations, the relight
+          evaluation, with ``--gate-psnr 0`` (the 28 dB gate is not held at
+          this size): the summary's stages in order, finite metrics and their
+          provenance, stage 2's "loaded geometry pretrain"; then one stage-2
+          step of the pipeline's config on the prior in this process, its K1
+          launches counted, and the kernel bit for bit against the plain
+          version on the step's first full shadow block against the prior's
+          vertices, timed beside it and torch.cdist + topk, with its bound
   options the HDQ, shadow-ray and camera-trace options: the 512² frames of
           ``golden.options_frame_cfg()`` (the exact frame with
           shadow_compact 0.25, shadow_skip_resd, shadow_verts_sub 4) and
@@ -145,10 +165,11 @@ Phases, each printing one flushed line with its wall seconds:
           >= 50 dB on every map, spec_map within 20 % of each pixel
   multi-gpu  the port under ``python -m torch.distributed.run --standalone
           --nproc_per_node W`` (W = min(card count, 4), one rank a card,
-          NCCL): first NCCL alone, ``eval/nccl_probe.py``'s default setting
-          (a barrier, all_reduces of the gradient and of one float, all_gathers
-          of the frame's maps and of one map, a broadcast, each checked and
-          timed, over W ranks importing nothing of the port); then
+          NCCL): first, when W > 1, NCCL alone, ``eval/nccl_probe.py``'s
+          default setting (a barrier, all_reduces of the gradient and of one
+          float, all_gathers of the frame's maps and of one map, a broadcast,
+          each checked and timed, over W ranks importing nothing of the
+          port; at W = 1 ``dist_check`` covers what it would); then
           ``eval/dist_check.py`` renders the exact 512² frame sharded over
           the ranks and runs the float32 reference stage-1 and stage-2 steps
           (``train_check.reference_step``) through the distributed Trainer,
@@ -199,7 +220,8 @@ from relightableavatar_tpu_torch.config import setup
 from relightableavatar_tpu_torch.data.datasets import (load_lighting, make_data_loader,
                                                        make_dataset)
 from relightableavatar_tpu_torch.data.image_io import read_rgb, write_png
-from relightableavatar_tpu_torch.eval import dist_check, golden, mesh_check, train_check
+from relightableavatar_tpu_torch.eval import (check_golden_512, dist_check, golden, mesh_check,
+                                              train_check)
 from relightableavatar_tpu_torch.eval.evaluator import MeshEvaluator
 from relightableavatar_tpu_torch.eval.knn_cases import (
     FRAME_BLOCKS, cloud_sha256, cuda_ms, frame_input_name, knn_cases, record_knn_inputs,
@@ -216,7 +238,8 @@ from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer
                                                              SphereTracingRenderer,
                                                              reshade_dense)
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
-from relightableavatar_tpu_torch.train.trainer import ray_chunks
+from relightableavatar_tpu_torch.train import e2e
+from relightableavatar_tpu_torch.train.trainer import Trainer, ray_chunks
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.flops import DEVICE_PEAKS, device_peaks, train_step_flops
 
@@ -293,6 +316,10 @@ SUB_N = 2048                # vertices of the shadow rays' subsample
 # 0.08 % hash.  The bar is about five times the largest
 OPTION_SPEC_REL = 0.2
 SELECT_P = 8192             # points of the KNN routes' card-vs-CPU check
+# the e2e phase: the two-stage pipeline on [cli]'s tree at 1 epoch a stage
+E2E_EXP = "tubeman_e2e"
+E2E_ITERS = 3               # iterations an epoch of each training stage
+E2E_TIMEOUT = 600           # seconds the pipeline may take
 MULTI_GPU_MAX = 4           # ranks of the [multi-gpu] phase: min(card count, this)
 MULTI_GPU_TIMEOUT = 300     # seconds a torchrun subprocess of [multi-gpu] may take
 MULTI_GPU_ITERS = 2         # iterations of the CLI's epoch under torchrun
@@ -467,8 +494,6 @@ def cli_phase(smi: str, tmp: str, size: int = golden.FRAME_SIZE) -> tuple[int, f
     metrics_x = eval_metrics(log_x)
     check(metrics_x["psnr"] >= CLI_MIN_PSNR, f"evaluate at the generator's settings: "
           f"{metrics_x['psnr']:.2f} dB < {CLI_MIN_PSNR} dB against the generated images")
-    log_e, eval_s = run_cli(run + ["evaluate", *common])
-    metrics_d = eval_metrics(log_e)
     vis_dir = os.path.join(tmp, "vis")
     vis_types = [w for t in CLI_TYPES for w in (f"vis_{t}_map", "True")]
     log_v, vis_s = run_cli(run + ["visualize", *common, "result_dir", vis_dir, *vis_types])
@@ -506,9 +531,8 @@ def cli_phase(smi: str, tmp: str, size: int = golden.FRAME_SIZE) -> tuple[int, f
           f"PNG decode of a {rgb.shape[1]}x{rgb.shape[0]} RGB image {decode_ms:.1f} ms, encode "
           f"of an RGBA one {encode_ms:.1f} ms (host); run -t dataset {data_s:.1f} s, network "
           f"{net_s:.1f} s (mean render time {net_mean:.4f} s, fps {net_fps:.2f}; {smi}), "
-          f"evaluate exact {exact_s:.1f} s ({fmt(metrics_x)}), evaluate defaults {eval_s:.1f} s "
-          f"({fmt(metrics_d)}), visualize {vis_s:.1f} s ({len(want)} files); ms a frame after "
-          f"the first: network {fmt(ms_n)}; evaluate exact {fmt(ms_x)}; visualize {fmt(ms_v)}; "
+          f"evaluate exact {exact_s:.1f} s ({fmt(metrics_x)}), visualize {vis_s:.1f} s "
+          f"({len(want)} files); ms a frame after the first: network {fmt(ms_n)}; evaluate exact {fmt(ms_x)}; visualize {fmt(ms_v)}; "
           f"first CLI frame: KNN kernel launches {launches_cli}, kernel equal to the plain "
           f"version on its {len(cli_inputs)} recorded inputs ("
           + ", ".join(frame_input_name(k, p) for k, (p, _) in cli_inputs.items()) + ")")
@@ -791,10 +815,6 @@ def train_phase(smi: str, tmp: str) -> dict:
                                "train.epoch", "3"], timeout=CLI_TIMEOUT)
     with np.load(os.path.join(mdir, "latest.npz")) as f:
         check(int(f["epoch"]) == 3, f"resume saved epoch {int(f['epoch'])}, not 3")
-    log_n, net_s = run_cli(["relightableavatar_tpu_torch.run", "-t", "network", *common,
-                            "num_eval_frame", str(CLI_FRAMES), "test.frame_sampler_interval", "1"])
-    m = re.search(r"mean render time: ([\d.]+)s", log_n)
-    check(m is not None, "run -t network from the trained checkpoint printed no render time")
     fmt = lambda t: ", ".join(f"{x:.3e}" for x in t)
     ret["model_dir"] = mdir
     phase("train", t0, f"step at B={B} R={R} S={S} (budget {int(cfg.tpu.grad_sample_budget)}: "
@@ -811,8 +831,7 @@ def train_phase(smi: str, tmp: str) -> dict:
           f"2 epochs x {TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(
               f"{x:.3f}" for x in it_s) + "; mfu " + (", ".join(f"{x:.2f}%" for x in mfus)
                                                    or "not printed: no peak for this card")
-          + f"), resume 1 epoch {resume_s:.1f} s, run -t network "
-          f"from the trained checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
+          + f"), resume 1 epoch {resume_s:.1f} s")
     return ret
 
 
@@ -929,10 +948,6 @@ def train_relight_phase(smi: str, tmp: str, geometry: str) -> dict:
         check(int(f["epoch"]) == 3, f"stage-2 resume saved epoch {int(f['epoch'])}, not 3")
         check("net:albedo/layers/0/w" in f.files and "net:env" in f.files,
               "the stage-2 checkpoint lacks the relight heads or the envmap")
-    log_n, net_s = run_cli(["relightableavatar_tpu_torch.run", "-t", "network", *common,
-                            "num_eval_frame", str(CLI_FRAMES), "test.frame_sampler_interval", "1"])
-    m = re.search(r"mean render time: ([\d.]+)s", log_n)
-    check(m is not None, "run -t network from the stage-2 checkpoint printed no render time")
     fmt = lambda t: ", ".join(f"{x:.3e}" for x in t)
     losses = ", ".join(f"{r['loss']:.5f}" for r in rows)
     phase("train-relight", t0, f"reference stage-2 step B={train_check.RELIGHT_B} "
@@ -950,8 +965,121 @@ def train_relight_phase(smi: str, tmp: str, geometry: str) -> dict:
           f"whose hit differs {flips} of {2 * train_check.RELIGHT_CHECK_R} ({n_hit} hit on "
           f"the CPU); bf16 {fmt(held['bf16'])}; CLI stage-2 train 2 epochs x "
           f"{TRAIN_CLI_ITERS} its {train_s:.1f} s (s/it " + ", ".join(f"{x:.3f}" for x in it_s)
-          + f"; losses {losses}), resume 1 epoch {resume_s:.1f} s, run -t network relighting "
-          f"True from the stage-2 checkpoint {net_s:.1f} s (mean render time {m.group(1)} s)")
+          + f"; losses {losses}), resume 1 epoch {resume_s:.1f} s")
+    return ret
+
+
+def golden512_phase(smi: str) -> dict:
+    """The [golden-512] phase (see the module docstring).  Returns its KNN
+    launches and PSNR."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    knn_cuda.KNN_TOP3.launches = 0
+    img = check_golden_512.render("cuda")
+    torch.cuda.synchronize()
+    launches = knn_cuda.KNN_TOP3.launches
+    render_s = time.perf_counter() - t0
+    check(launches > 0, "the golden 512 frame did not launch the KNN kernel")
+    check(img.shape == (golden.FRAME_SIZE, golden.FRAME_SIZE, 3) and np.isfinite(img).all(),
+          f"the golden 512 frame is {img.shape}, or not finite")
+    ok, p = golden.check_golden(img, golden.GOLDEN_RELIGHT_512_JAXCPU, check_golden_512.MIN_PSNR)
+    _, p_png = golden.check_golden(img, golden.GOLDEN_RELIGHT_512)
+    check(ok, f"golden 512: {p:.2f} dB <= {check_golden_512.MIN_PSNR} dB against "
+              f"{os.path.relpath(golden.GOLDEN_RELIGHT_512_JAXCPU, REPO)}")
+    phase("golden-512", t0, f"bench.py's headline frame (golden512_cfg, {smi}): render "
+          f"{render_s:.3f} s (first call), KNN kernel launches {launches}; over the whole "
+          f"frame {p:.2f} dB against the JAX package's CPU render "
+          f"tests/golden_relight_512_jaxcpu.npy (bar > {check_golden_512.MIN_PSNR} dB), "
+          f"{p_png:.2f} dB against the stored fixtures/golden_relight_512.png (stale: the JAX "
+          f"package's own render is 41.75 dB from it; not held)")
+    return dict(launches=launches, psnr=p, psnr_png=p_png)
+
+
+def e2e_phase(smi: str, tmp: str) -> dict:
+    """The [e2e] phase (see the module docstring) on the tree [cli] left in
+    ``tmp``.  Returns K1's launches in one stage-2 step on the prior and the
+    kernel's times on that step's first full shadow block."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "e2e")
+    os.makedirs(os.path.join(root, os.path.dirname(e2e.DATA_ROOT)))
+    os.symlink(os.path.join(tmp, "tubeman"), os.path.join(root, e2e.DATA_ROOT))
+    e2e.seed_stage1(root, E2E_EXP)
+    flags = ["--root", root, "--exp", E2E_EXP, "--epochs1", "1", "--epochs2", "1", "--resume",
+             "--gate-psnr", "0", "--extra", "ep_iter", str(E2E_ITERS)]
+    args = e2e.parse_args(flags)
+    _, run_s = run_cli(["relightableavatar_tpu_torch.train.e2e", *flags], timeout=E2E_TIMEOUT)
+    print(f"[e2e] the {e2e.make_parser().get_default('gate_psnr')} dB gate is not held at this "
+          f"size (1 epoch of {E2E_ITERS} iterations a stage from the fixture's geometry): "
+          "--gate-psnr 0", flush=True)
+    rec = os.path.join(root, "data", "record", E2E_EXP)
+    with open(os.path.join(rec, "e2e_summary.json")) as f:
+        summary = json.load(f)
+    names = ["train1", "eval1", "mesh", "train2", "eval2"]
+    check(list(summary["stages"]) == [f"{n}_s" for n in names],
+          f"the pipeline ran the stages {list(summary['stages'])}")
+    for key in ("eval_stage1", "eval_stage2"):
+        m = summary[key] or {}
+        check(all(math.isfinite(m.get(k, math.nan)) for k in ("psnr", "ssim", "lpips")),
+              f"{key}: {m}")
+    prov1, prov2 = summary["eval_stage1"]["provenance"], summary["eval_stage2"]["provenance"]
+    check(prov1["checkpoint_epoch"] == 1 and prov2["checkpoint_epoch"] == 1
+          and prov2["geometry_pretrain_epoch"] == 1
+          and prov2["geometry_mesh"] == e2e.mesh_path(args),
+          f"provenance: {prov1}, {prov2}")
+    with open(os.path.join(rec, "train2.log")) as f:
+        check("loaded geometry pretrain" in f.read(), "stage 2 did not load the stage-1 geometry")
+    with np.load(os.path.join(root, e2e.mesh_path(args))) as f:
+        n_prior = len(f["verts"])
+
+    # one stage-2 step of the pipeline's config on the prior, in this process
+    t1 = time.perf_counter()
+    train2 = next(st for st in e2e.plan(args) if st.name == "train2")
+    with e2e.working_dir(root):
+        cfg, _ = setup([*train2.argv, "record_dir", os.path.join(tmp, "e2e_step")])
+        params, mcfg = make_network(cfg, device="cuda")
+        trainer = Trainer(cfg, params, mcfg, device="cuda")
+        items = iter(make_data_loader(cfg, is_train=True, device="cuda"))
+        batch = trainer.collate([next(items) for _ in range(int(cfg.train.batch_size))])
+    inputs: dict = {}
+    with record_knn_inputs(inputs, sizes=(SHADOW_P,), tail=False):
+        trainer.step(batch, 0)                                  # warm-up
+    torch.cuda.synchronize()
+    knn_cuda.KNN_TOP3.launches = 0
+    t_step = time.perf_counter()
+    stats = trainer.step(batch, 1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t_step
+    ret = {"launches": knn_cuda.KNN_TOP3.launches}
+    check(ret["launches"] > 0, "the stage-2 step on the prior did not launch the KNN kernel")
+    check(math.isfinite(float(stats.loss)), f"the stage-2 step's loss on the prior: {stats.loss}")
+    check(SHADOW_P in inputs, f"the step on the prior traced no full shadow block of {SHADOW_P}")
+    p, vv = inputs[SHADOW_P]
+    check(vv.shape[0] == n_prior, f"the shadow block's KNN ran against {vv.shape[0]} vertices, "
+                                  f"not the prior's {n_prior}")
+    d2k, ik = knn_cuda.knn_top3_cuda(p, vv)
+    d2r, ir = knn_top3_reference(p, vv)
+    ret["max_err"] = max_abs_diff(d2k, d2r)
+    check_knn_equal(f"stage-2 step on the prior, shadow block P={p.shape[0]}", p, vv, d2k, ik,
+                    d2r, ir)
+    ret["ms"] = time_in_turns({"kernel": lambda: knn_cuda.knn_top3_cuda(p, vv)}, REPS)["kernel"]
+    ret["plain_ms"], ret["library_ms"] = yardstick_ms(p, vv)
+    ret["bound_ms"] = knn_bound_ms(p.shape[0], vv.shape[0])[0]
+    ret["N"] = int(vv.shape[0])
+    del trainer, batch, inputs, p, vv, params
+    torch.cuda.empty_cache()
+    fmt = lambda m: ", ".join(f"{k} {v:.5g}" for k, v in m.items()
+                              if k in ("psnr", "ssim", "lpips"))
+    phase("e2e", t0, f"python -m relightableavatar_tpu_torch.train.e2e on [cli]'s tree ({smi}) "
+          f"{run_s:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in summary["stages"].items())
+          + f"; eval1 {fmt(summary['eval_stage1'])}; eval2 {fmt(summary['eval_stage2'])}; "
+          f"stage-1 and stage-2 checkpoints at epoch 1, the prior {n_prior} vertices; "
+          f"learned envmap mean {summary['lighting']['mean']:.4f} max "
+          f"{summary['lighting']['max']:.4f}; one stage-2 step on the prior "
+          f"{step_s * 1e3:.1f} ms (after one warm-up), K1 launches {ret['launches']}; on its "
+          f"shadow block P={SHADOW_P} N={ret['N']} kernel {ret['ms']:.4f} / plain "
+          f"{ret['plain_ms']:.4f} / cdist+topk {ret['library_ms']:.4f} ms, bound "
+          f"{ret['bound_ms']:.4f} ms, equal to the plain version "
+          f"({time.perf_counter() - t1:.1f} s for the step and the kernel)")
     return ret
 
 
@@ -1100,13 +1228,18 @@ def multi_gpu_phase(smi: str, tmp: str, frame: dict | None, count: int) -> dict:
     their dist_check lines."""
     t0 = time.perf_counter()
     W = min(count, MULTI_GPU_MAX)
-    # NCCL alone over the W cards first: a failure here is the machine's
-    log_p, probe_s = run_cli(["relightableavatar_tpu_torch.eval.nccl_probe", "--nproc", str(W),
-                              "--settings", "default"], timeout=PROBE_TIMEOUT)
-    m = re.search(r"\[nccl-probe\] (\{.*\})", log_p)
-    check(m is not None, f"the NCCL probe printed no line:\n{log_p[-3000:]}")
-    probe = json.loads(m.group(1))
-    check(probe["ok"] and probe["world"] == W, f"the NCCL probe over {W} cards: {probe}")
+    probe_line = "NCCL probe not run at W = 1 (dist_check covers one rank)"
+    if W > 1:
+        # NCCL alone over the W cards first: a failure here is the machine's
+        log_p, probe_s = run_cli(["relightableavatar_tpu_torch.eval.nccl_probe", "--nproc",
+                                  str(W), "--settings", "default"], timeout=PROBE_TIMEOUT)
+        m = re.search(r"\[nccl-probe\] (\{.*\})", log_p)
+        check(m is not None, f"the NCCL probe printed no line:\n{log_p[-3000:]}")
+        probe = json.loads(m.group(1))
+        check(probe["ok"] and probe["world"] == W, f"the NCCL probe over {W} cards: {probe}")
+        probe_line = (f"NCCL probe (default setting) {probe_s:.1f} s: median ms "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in probe["ms"].items())
+                      + f", transports {probe['transports']}")
 
     # the sharded frame and steps against this process's for the same ranks
     # and, over more than one, against its whole blocks and chunks
@@ -1184,16 +1317,13 @@ def multi_gpu_phase(smi: str, tmp: str, frame: dict | None, count: int) -> dict:
         f"{fmt(r0['frame_whole_max_abs'])}; "
         + "; ".join(f"{st} {fmt(r0[st + '_whole'])}" for st in dist_check.STAGES))
     phase("multi-gpu", t0, f"torchrun --nproc_per_node {W}, NCCL {r0['nccl']} ({smi}); "
-          f"NCCL probe (default setting) {probe_s:.1f} s: median ms " + ", ".join(
-              f"{k} {v:.3f}" for k, v in probe["ms"].items())
-          + f", transports {probe['transports']}; "
-          f"references in this process {ref_s:.1f} s; dist_check {check_s:.1f} s: "
+          f"{probe_line}; references in this process {ref_s:.1f} s; dist_check {check_s:.1f} s: "
           f"{per_rank}; rank 0 against one process of {W} rank(s)' blocks and chunks: frame "
           f"{fmt(r0['frame_max_abs'])}; "
           + "; ".join(f"{st} {fmt(r0[st])}" for st in dist_check.STAGES) + whole_text
           + f"; train CLI 1 epoch x {MULTI_GPU_ITERS} its {train_s:.1f} s (losses "
           + ", ".join(f"{r['loss']:.5f}" for r in rows) + f"), resume 1 epoch {resume_s:.1f} s")
-    return dict(launches=[d["frame_launches"] for d in lines], lines=lines, probe=probe)
+    return dict(launches=[d["frame_launches"] for d in lines], lines=lines)
 
 
 def _card_vs_cpu(name: str, card: dict, cpu: dict, failed: list) -> tuple[float, float]:
@@ -1434,6 +1564,11 @@ def main() -> None:
           f"{st.blocks - st.blocks_rendered} of {st.blocks}; peak memory {peak_a:.2f} GiB; "
           f"rgb vs the exact frame {a_psnr:.2f} dB (lossy by design)")
 
+    # ---- bench.py's headline frame against the JAX package's 512² golden
+    del renderer_a
+    torch.cuda.empty_cache()
+    gold = golden512_phase(smi)
+
     # ---- the novel-light sweep (the third main path)
     t0 = time.perf_counter()
     cfg_s = golden.sweep_frame_cfg()
@@ -1657,13 +1792,16 @@ def main() -> None:
         torch.cuda.empty_cache()
         relight = train_relight_phase(smi, tmp, train["model_dir"])
         torch.cuda.empty_cache()
+        # ---- the two-stage pipeline from [cli]'s images
+        pipe = e2e_phase(smi, tmp)
+        torch.cuda.empty_cache()
         # ---- the options of the HDQ, the shadow rays and the camera trace
         opts = options_phase(smi, ctx, batch, n_fg)
         torch.cuda.empty_cache()
         # ---- the port over the cards under torchrun
         multi = multi_gpu_phase(smi, tmp, frame_ref, count)
     max_err = max(max_err, cli_err, mesh["max_err"], train["max_err"], relight["max_err"],
-                  opts["max_err"])
+                  pipe["max_err"], opts["max_err"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1681,6 +1819,8 @@ def main() -> None:
         "launches_mesh": mesh["launches"],
         "launches_train": train["launches"],
         "launches_train_relight": relight["launches"],
+        "launches_e2e_prior_step": pipe["launches"],
+        "launches_golden_512": gold["launches"],
         "launches_options": opts["launches_options"],
         "launches_premarch": opts["launches_premarch"],
         "launches_multi_gpu": multi["launches"],
@@ -1716,6 +1856,11 @@ def main() -> None:
         "train_relight_input_plain_ms": relight["plain_ms"],
         "train_relight_input_library_ms": relight["library_ms"],
         "train_relight_input_bound_ms": relight["bound_ms"],
+        "e2e_prior_input_ms": pipe["ms"],
+        "e2e_prior_input_plain_ms": pipe["plain_ms"],
+        "e2e_prior_input_library_ms": pipe["library_ms"],
+        "e2e_prior_input_bound_ms": pipe["bound_ms"],
+        "e2e_prior_input_N": pipe["N"],
         "options_inputs": opts["inputs"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

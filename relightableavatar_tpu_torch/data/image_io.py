@@ -2,8 +2,9 @@
 numpy: the card's machine has no OpenCV, which the JAX package's dataset and
 visualizer call for these.
 
-- :func:`read_png` / :func:`write_png`: 8-bit gray, gray + alpha, RGB and
-  RGBA PNG; every filter type on read, the Up filter on write.
+- :func:`read_png` / :func:`write_png`: gray, gray + alpha, RGB and RGBA
+  PNG, 8- and 16-bit on read (every filter type), 8-bit with the Up
+  filter on write.
 - :func:`read_rgb` / :func:`read_gray` / :func:`write_image`: what
   ``cv2.imread`` (as RGB, or ``IMREAD_GRAYSCALE``) and ``cv2.imwrite`` do
   for the dataset and the visualizer, dispatched on the extension.  JPEG
@@ -68,7 +69,8 @@ def _paeth_row(raw: bytes, prior: bytes, bpp: int, average: bool) -> bytearray:
 
 
 def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines of a non-interlaced 8-bit image, unfiltered."""
+    """The scanlines of a non-interlaced image, unfiltered: ``stride`` bytes
+    a row, ``bpp`` bytes a pixel (a 16-bit sample is two bytes)."""
     rows = np.frombuffer(data, np.uint8)
     if rows.size != height * (stride + 1):
         raise ValueError(f"PNG data holds {rows.size} bytes, expected {height * (stride + 1)}")
@@ -95,8 +97,9 @@ def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """uint8 (H, W) for gray, (H, W, 2) gray + alpha, (H, W, 3) RGB,
-    (H, W, 4) RGBA: 8-bit, non-interlaced PNG only."""
+    """(H, W) for gray, (H, W, 2) gray + alpha, (H, W, 3) RGB, (H, W, 4)
+    RGBA: uint8 for 8-bit and uint16 for 16-bit (big-endian samples, as
+    ``fixtures/golden_relight_512.png`` holds them) non-interlaced PNG."""
     with open(path, 'rb') as f:
         buf = f.read()
     if buf[:8] != _PNG_SIGNATURE:
@@ -115,12 +118,15 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit, non-interlaced gray, gray + alpha, RGB "
-                         f"and RGBA PNGs are read (bit depth {depth}, color type "
+    if depth not in (8, 16) or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8- and 16-bit, non-interlaced gray, gray + alpha, "
+                         f"RGB and RGBA PNGs are read (bit depth {depth}, color type "
                          f"{ctype}, interlace {interlace})")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b''.join(idat)), height, width * ch, ch)
+    bpp = ch * depth // 8
+    px = _unfilter(zlib.decompress(b''.join(idat)), height, width * bpp, bpp)
+    if depth == 16:
+        px = px.view('>u2').astype(np.uint16)
     return px.reshape(height, width) if ch == 1 else px.reshape(height, width, ch)
 
 

@@ -116,7 +116,7 @@ def make_dataset_tree(root: str, frames: int = 30, views: int = 4, size: int = 5
             print(f'frame {f + 1}/{frames} done', flush=True)
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--root', default='data/synthetic/tubeman')
     ap.add_argument('--frames', type=int, default=30)
@@ -126,7 +126,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     with torch.no_grad():
         make_dataset_tree(args.root, args.frames, args.views, args.size,
-                          args.fixture_params)
+                          args.fixture_params, device=device)
 
 
 if __name__ == '__main__':

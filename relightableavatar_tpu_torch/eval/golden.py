@@ -5,8 +5,11 @@ at, for the port's tests, ``chip_smoke.py`` and ``eval/profile_frame.py``
 
 Everything is read from tracked files under ``fixtures/`` and ``tests/``:
 the distilled avatar's parameters, the SMPL-H-style body model and motion,
-the stored 256-ray golden ``tests/golden_relight_24px.npy`` and the 64px
-bench-stack golden ``tests/golden_benchstack_64px.npy``.
+the stored 256-ray golden ``tests/golden_relight_24px.npy``, the 64px
+bench-stack golden ``tests/golden_benchstack_64px.npy``, the 512x512
+16-bit PNG of bench.py's headline frame ``fixtures/golden_relight_512.png``
+and the JAX package's CPU render of that frame
+``tests/golden_relight_512_jaxcpu.npy``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ from relightableavatar_tpu_torch.weights import load_params
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GOLDEN_RELIGHT_24 = os.path.join(REPO, 'tests', 'golden_relight_24px.npy')
 GOLDEN_BENCHSTACK_64 = os.path.join(REPO, 'tests', 'golden_benchstack_64px.npy')
+GOLDEN_RELIGHT_512 = os.path.join(REPO, 'fixtures', 'golden_relight_512.png')
+# the JAX package's CPU render of the same frame at HEAD (tests/make_golden_512_jaxcpu.py):
+# the stored PNG is 41.75 dB from it, so the port is held to this one
+GOLDEN_RELIGHT_512_JAXCPU = os.path.join(REPO, 'tests', 'golden_relight_512_jaxcpu.npy')
 FRAME_SIZE = 512    # width and height of the frames of the *_frame_cfg() configs
 CHECK_SIZE = 32     # width and height of the frames that hold the card to the CPU
 # bench.py's relight_sweep_8light lights: four HDRIs (procedural without
@@ -92,6 +99,26 @@ def accel_frame_cfg():
     cfg.tpu.bf16_mlp = True
     cfg.tpu.ray_block = 8192
     return cfg
+
+
+def golden512_cfg():
+    """Config of ``fixtures/golden_relight_512.png``: bench.py's headline
+    frame as ``scripts/check_golden_512.py`` renders it, ``bench._setup``'s
+    ``make_cfg(relight=True)`` (the default config with the fixture's 52
+    bones, HDQ band 0.125 m, ``ray_block`` 8192), ``n_samples`` 3 and
+    ``_accel_knobs(cfg, on=True)`` (``bench.py:96-104,176-186``); the MLPs
+    in bfloat16 as ``make_params`` sets them (the default here), the KNN
+    route the default's.  Not :func:`accel_frame_cfg`, which adds the miss
+    skip."""
+    cfg = default_cfg()
+    cfg.n_bones = 52
+    cfg.cond_dim = 52 * 3
+    cfg.relighting = True
+    cfg.dist_th = 0.125
+    cfg.obj_lvis.dist_th = 0.125
+    cfg.tpu.ray_block = 8192
+    cfg.n_samples = 3
+    return bench_stack(cfg, 96)
 
 
 def sweep_frame_cfg():
@@ -284,13 +311,25 @@ def render_benchstack_64(device="cuda", cfg_overrides: dict | None = None,
     return out.rgb_map.cpu().numpy().astype(np.float32), int(mab.sum())
 
 
+def read_golden(path: str) -> np.ndarray:
+    """A stored golden as float32: a float ``.npy`` as it is, a uint16
+    ``.npy`` or a 16-bit PNG (RGB) scaled to [0, 1]."""
+    if path.endswith('.png'):
+        from relightableavatar_tpu_torch.data.image_io import read_png
+        raw = read_png(path)
+    else:
+        raw = np.load(path)
+    return raw.astype(np.float32) / 65535.0 if raw.dtype == np.uint16 else raw
+
+
 def check_golden(img: np.ndarray, golden_path: str = GOLDEN_BENCHSTACK_64,
                  min_psnr: float = 45.0):
     """(ok, psnr vs the stored golden, or None when the file is absent)
-    (``relightableavatar_tpu/eval/golden.py:89-99``)."""
+    (``relightableavatar_tpu/eval/golden.py:89-99``); the golden is read by
+    :func:`read_golden`."""
     if not os.path.exists(golden_path):
         return False, None
-    ref = np.load(golden_path)
+    ref = read_golden(golden_path)
     if img.shape != ref.shape:
         return False, 0.0
     p = psnr(img, ref)

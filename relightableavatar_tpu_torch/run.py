@@ -130,7 +130,7 @@ TASKS = {'dataset': run_dataset, 'network': run_network,
          'evaluate': run_evaluate, 'visualize': run_visualize}
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     import torch.distributed as dist
 
     from relightableavatar_tpu_torch.config import setup
@@ -140,7 +140,7 @@ def main(argv=None):
         if args.type not in TASKS:
             raise SystemExit(f"-t must be one of {', '.join(TASKS)}, got {args.type!r}")
         with post_mortem_on_crash():
-            TASKS[args.type](cfg)
+            TASKS[args.type](cfg, device=device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -7,8 +7,8 @@ The epoch loop with its save and eval cadences and the checkpoint resume.
 ``resume False`` deletes ``trained_model_dir`` first (a cold start from
 ``init_anisdf``); ``dry_run`` stops after building the network;
 ``detect_anomaly`` turns on ``torch.autograd.set_detect_anomaly``.
-``main`` runs on the card; :func:`train` and :func:`test` take ``device``
-(the tests pass "cpu").  With ``relighting True`` (stage 2) the network
+``main``, :func:`train` and :func:`test` run on the card unless ``device``
+says otherwise (the tests pass "cpu").  With ``relighting True`` (stage 2) the network
 takes its geometry from ``geometry_pretrain`` (a stage-1 checkpoint) and the
 relight heads and the envmap from ``init_anisdf``, and the checkpoints go
 under ``relight/<exp_name>/``.
@@ -97,7 +97,7 @@ def test(cfg, device="cuda"):
     return run_evaluate(cfg, device=device)
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     import torch
     import torch.distributed as dist
 
@@ -109,9 +109,9 @@ def main(argv=None):
     try:
         with post_mortem_on_crash():
             if args.test:
-                test(cfg)
+                test(cfg, device=device)
             else:
-                train(cfg)
+                train(cfg, device=device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -139,8 +139,10 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def test_host_layer_imports_without_opencv_yaml_or_tqdm():
     """The card's machine has no OpenCV, PyYAML or tqdm: the CLI, the data
-    layer, the visualizer, the evaluator and the generator import without
-    them, and the config reads the YAML chain with the port's own reader."""
+    layer, the visualizer, the evaluator, the generator, the two-stage
+    pipeline, the golden 512² check and the lighting comparison import
+    without them, and the config reads the YAML chain with the port's own
+    reader."""
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'jaxlib', 'relightableavatar_tpu', 'cv2', 'yaml', 'tqdm'):\n"
@@ -148,7 +150,8 @@ def test_host_layer_imports_without_opencv_yaml_or_tqdm():
         "for n in ('run', 'data.datasets', 'data.image_io', 'data.make_synthetic',\n"
         "          'vis.visualizer', 'eval.evaluator', 'eval.metrics', 'models.factory',\n"
         "          'config', 'renderer.mesh', 'ops.native', 'ops.marching',\n"
-        "          'ops.meshtools', 'ops.point_mesh'):\n"
+        "          'ops.meshtools', 'ops.point_mesh', 'train.e2e', 'eval.check_golden_512',\n"
+        "          'eval.evaluate_lighting'):\n"
         "    importlib.import_module('relightableavatar_tpu_torch.' + n)\n"
         "import chip_smoke\n"
         "from relightableavatar_tpu_torch.config import setup\n"

@@ -20,7 +20,11 @@ difference, the JAX package's ``knn_unchunked(exact=True)`` by the float64
 matmul identity, which picks the same neighbours but on ties below
 float64's rounding), bf16 off; the smoothness pair's jitter is JAX's own
 draw, fed to the port.  Everything runs in float64 (the JAX package under
-``jax.enable_x64``).
+``jax.enable_x64``).  The step is also held to JAX's on a mesh geometry
+prior (``use_geometry True geometry_mesh can_mesh.npz``, the stage-2 step
+of the two-stage pipeline): the frame context of a ``can_mesh.npz`` written
+as ``tests/test_torch_datasets.py:_prior`` writes one, here from the
+fixture body with its vertices in a seeded order other than SMPL's.
 """
 import os
 
@@ -33,8 +37,11 @@ import torch
 from jax_fixture_scene import few_torch_threads, jax_cfg, jax_scene  # noqa: F401 (fixture)
 from relightableavatar_tpu.config import default_cfg as j_default_cfg
 from relightableavatar_tpu.models import anisdf as j_anisdf
+from relightableavatar_tpu.models.context import make_bigpose as j_make_bigpose
+from relightableavatar_tpu.models.context import make_frame_context_mesh as j_mesh_ctx
 from relightableavatar_tpu.ops.envmap import gen_light_xyz as j_gen_light_xyz
 from relightableavatar_tpu.renderer.sphere_tracing import render_human_block as j_render_block
+from relightableavatar_tpu.smpl.body_model import BodyModel as JBodyModel
 from relightableavatar_tpu.train import loss as j_loss
 from relightableavatar_tpu.train.checkpoints import _flatten
 from relightableavatar_tpu.train.trainer import Trainer as JTrainer
@@ -116,6 +123,26 @@ def scene(tmp_path_factory):
     flat['env'] = flat['env'].reshape(4, 8, 8, 8, 3).mean(axis=(1, 3))
     jp = _unflat(flat)
     return dict(pc=pc, jc=jc, pm=pm, jm=jm, jp=jp, flat=flat, items=_items(jctx))
+
+
+@pytest.fixture(scope="module")
+def prior_items(tmp_path_factory):
+    """``_items`` of frame 0 with the context of a mesh geometry prior: the
+    fixture body's bigpose vertices, skinning weights, faces, joints and
+    parents written to ``can_mesh.npz`` (``tests/test_torch_datasets.py:_prior``)
+    with the vertices permuted (seeded), read back and posed by the JAX
+    package's ``make_frame_context_mesh``, as its dataset does under
+    ``use_geometry``."""
+    path = str(tmp_path_factory.mktemp("prior") / 'can_mesh.npz')
+    model = JBodyModel(os.path.join(golden.REPO, 'fixtures/synthetic_body.npz'))
+    motion = dict(np.load(os.path.join(golden.REPO, 'fixtures/synthetic_motion.npz')))
+    tverts, tjoints, _, _ = j_make_bigpose(model, motion['shapes'][0])
+    perm = np.random.default_rng(1).permutation(len(tverts))
+    np.savez(path, verts=np.asarray(tverts)[perm], faces=np.argsort(perm)[model.faces],
+             weights=np.asarray(model.weights)[perm], tjoints=tjoints, parents=model.parents)
+    prior = dict(np.load(path))
+    ctx = j_mesh_ctx(prior, motion['poses'][0], motion['Rh'][0], motion['Th'][0])
+    return _items(ctx)
 
 
 def _unflat(flat):
@@ -259,9 +286,10 @@ def _functional(out, weights, xp):
 
 
 # ---------------------------------------------------------------- step
-def _jax_relight_step(scene, key):
+def _jax_relight_step(scene, key, items=None):
     """(loss, flat grads, flat params after the step, stats) of one float64
-    stage-2 step of the JAX package: the loss of ``Trainer._build_step``
+    stage-2 step of the JAX package on ``items`` (default ``scene['items']``,
+    the SMPL context's): the loss of ``Trainer._build_step``
     (``frame_loss`` vmapped over the frames with the step key split into one
     key a frame: ``render_human_block(training=True)`` and
     ``anisdf_losses``, their mean) by ``jax.value_and_grad``, and the
@@ -269,7 +297,7 @@ def _jax_relight_step(scene, key):
     the lr table, Adam) on those gradients."""
     jc, jm = scene['jc'], scene['jm']
     jp = _cast_tree(scene['jp'], np.float64)
-    items = scene['items']
+    items = scene['items'] if items is None else items
     w = j_loss.loss_weights_from_cfg(jc)
     trainer = JTrainer(jc, jp, jm)
     lx, la = j_gen_light_xyz(jm.env_h, jm.env_w, jm.env_r)
@@ -305,15 +333,15 @@ def _port_batch(trainer, items, dtype=torch.float64):
     return batch
 
 
-def test_relight_step_matches_jax_float64(scene, x64):
-    """One stage-2 step in float64: the loss and every stat, every
-    parameter's gradient and every parameter after the clipped Adam step
-    within STEP_REL of the largest entry of JAX's tensor."""
+def _assert_step_matches_jax(scene, items):
+    """One stage-2 step of ``items`` in float64: the loss and every stat,
+    every parameter's gradient and every parameter after the clipped Adam
+    step within STEP_REL of the largest entry of JAX's tensor."""
     key = jax.random.PRNGKey(3)
-    ref = _jax_relight_step(scene, key)
+    ref = _jax_relight_step(scene, key, items)
     noise = torch.tensor(_jax_noise(key)).reshape(B, R, S, 3)
     trainer = Trainer(scene['pc'], _port_params(scene), scene['pm'], device="cpu")
-    stats = trainer.step(_port_batch(trainer, scene['items']), 0, jitter_noise=noise)
+    stats = trainer.step(_port_batch(trainer, items), 0, jitter_noise=noise)
     assert set(stats) == set(ref['stats'])
     for k, v in ref['stats'].items():
         assert abs(float(stats[k]) - v) <= STEP_REL * max(abs(v), 1e-12), (k, float(stats[k]), v)
@@ -332,6 +360,24 @@ def test_relight_step_matches_jax_float64(scene, x64):
     print(f"stage-2 float64: worst grad {worst_g:.3e}, worst param after the step {worst_p:.3e}")
     assert worst_g <= STEP_REL and worst_p <= STEP_REL
     assert trainer.shadow_rays > 0
+
+
+def test_relight_step_matches_jax_float64(scene, x64):
+    """One stage-2 step in float64 on the SMPL context, held to JAX's
+    (``_assert_step_matches_jax``)."""
+    _assert_step_matches_jax(scene, scene['items'])
+
+
+def test_relight_step_on_mesh_prior_matches_jax_float64(scene, prior_items, x64):
+    """The stage-2 step of the two-stage pipeline, on a mesh geometry
+    prior's context (``prior_items``), held to JAX's at the same bars as on
+    SMPL's; the prior's vertex order is not SMPL's, so the KNN's neighbour
+    indices differ from the SMPL context's.  About 56 s under ``-n 6``."""
+    smpl, prior = scene['items'][0]['ctx'], prior_items[0]['ctx']
+    assert not np.array_equal(np.asarray(prior['pverts']), np.asarray(smpl['pverts']))
+    np.testing.assert_allclose(np.sort(np.asarray(prior['pverts']), axis=0),
+                               np.sort(np.asarray(smpl['pverts']), axis=0), atol=1e-4)
+    _assert_step_matches_jax(scene, prior_items)
 
 
 def test_train_step_relight_runs(scene):
