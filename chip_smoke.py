@@ -34,7 +34,8 @@ Phases, each printing one flushed line with its wall seconds:
           (``golden.accel_frame_cfg()``: 96-node grid, slice sweep, miss
           skip, bfloat16 MLPs) through SphereTracingRenderer.render, with its
           launch count, recording the grid bake's first KNN input; then once
-          more with a device sync after each stage for the stage times
+          more inside ``utils/profiling.collecting()`` for the stages'
+          program spans and counters (no sync between stages)
   sweep-frame  bench.py's relight_sweep_8light frame (``golden.sweep_frame_cfg()``:
           the accel stack without the miss skip, 8 lights) through
           NovelLightRenderer.render: base pass and re-shade seconds, KNN
@@ -242,6 +243,7 @@ from relightableavatar_tpu_torch.train import e2e
 from relightableavatar_tpu_torch.train.trainer import Trainer, ray_chunks
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.flops import DEVICE_PEAKS, device_peaks, train_step_flops
+from relightableavatar_tpu_torch.utils import profiling
 
 # published H100 SXM peaks (NVIDIA H100 datasheet, utils/flops.py): FP32
 # outside the tensor cores and HBM3 bandwidth
@@ -1551,18 +1553,20 @@ def main() -> None:
     hits_a = int((acc_a > 0).sum())
     check(hits_a > 0, "the accelerated frame hit nothing")
     a_psnr = golden.psnr(rgb_a.cpu().numpy(), exact_rgb)
-    renderer_a.time_stages = True
-    renderer_a.render(batch)
+    profiling.reset()
+    with profiling.collecting():
+        renderer_a.render(batch)
+    torch.cuda.synchronize()
+    spans_a = profiling.summary()
+    profiling.reset()
     st = renderer_a.last_frame
     phase("accel-frame", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} relight_512_accel_skip: "
           f"{n_fg} rays, {hits_a} hit; render {accel_s:.3f} s = {n_fg / accel_s:.0f} rays/s "
           f"(first call); KNN kernel launches {launches_accel}; grid lattice {lattice}, "
-          f"bake calls of {bake_P} points; with a sync after each stage: bake "
-          f"{st.bake_s * 1e3:.1f} ms, sweep {st.sweep_s * 1e3:.1f} ms, miss march "
-          f"{st.march_s * 1e3:.1f} ms, ray blocks {st.blocks_s * 1e3:.1f} ms, assembly "
-          f"{st.assemble_s * 1e3:.1f} ms; ray blocks skipped by the miss skip "
+          f"bake calls of {bake_P} points; ray blocks skipped by the miss skip "
           f"{st.blocks - st.blocks_rendered} of {st.blocks}; peak memory {peak_a:.2f} GiB; "
-          f"rgb vs the exact frame {a_psnr:.2f} dB (lossy by design)")
+          f"rgb vs the exact frame {a_psnr:.2f} dB (lossy by design); the stages' host "
+          f"spans, no sync between them: {spans_a}")
 
     # ---- bench.py's headline frame against the JAX package's 512² golden
     del renderer_a
@@ -1653,13 +1657,16 @@ def main() -> None:
     cfg_g = golden.ground_frame_cfg()
     renderer_g = SphereTracingRenderer(cfg_g, params_a, mcfg_a, device="cuda")
     batch_g, mab_g = golden.frame_batch(ctx, golden.FRAME_SIZE, golden.FRAME_SIZE)
-    renderer_g.time_stages = True
     torch.cuda.synchronize()
     knn_cuda.KNN_TOP3.launches = 0
+    profiling.reset()
     t1 = time.perf_counter()
-    res_g = renderer_g.render(batch_g)
+    with profiling.collecting():
+        res_g = renderer_g.render(batch_g)
     torch.cuda.synchronize()
     ground_frame_s = time.perf_counter() - t1
+    ground_s = profiling.totals()["spans"]["render.ground"]["total_s"]
+    profiling.reset()
     launches_ground = knn_cuda.KNN_TOP3.launches
     check(launches_ground > 0, "the ground frame did not launch the KNN kernel")
     n_px = golden.FRAME_SIZE ** 2
@@ -1674,7 +1681,6 @@ def main() -> None:
     check(lit > 0, "the ground is not lit")
     check(bool(np.asarray(batch_g.mask_at_box).all()), "mask_at_box is not the full frame")
     shadow_rays = renderer_g.last_frame.shadow_rays
-    ground_s = renderer_g.last_frame.ground_s
     del res_g
     t1 = time.perf_counter()
     small_card = golden.render_check_frame(golden.ground_check_cfg(), device="cuda")
@@ -1687,7 +1693,7 @@ def main() -> None:
         check(p >= CARD_CPU_MIN_PSNR or k == "spec_map",
               f"32x32 ground frame {k}: card vs CPU {p:.2f} dB")
     phase("ground", t0, f"{golden.FRAME_SIZE}x{golden.FRAME_SIZE} ground frame: "
-          f"{ground_frame_s:.3f} s, of it the ground pass {ground_s:.3f} s "
+          f"{ground_frame_s:.3f} s, of it the ground pass's span {ground_s:.3f} s "
           f"({n_px} rays x {renderer_g.light_xyz.shape[0] * renderer_g.light_xyz.shape[1]} "
           f"texels, {shadow_rays} shadow rays traced); KNN kernel launches {launches_ground}; "
           f"ground rgb max {lit:.3f}; {golden.CHECK_SIZE}x{golden.CHECK_SIZE} ground frame "

@@ -1,0 +1,20 @@
+"""Forward a training step (every chunk and frame's render and losses): the
+program spans ``step.forward`` and ``step.loss``'s share of the traced
+units' top span ``train.step`` (``utils/profiling.totals()`` of the port,
+which records spans only while the profiler runs, so only the traced
+units), applied to the window's unprofiled time a unit (the profiler slows
+the host), in milliseconds. None without traced units, or where the
+program has no span registry."""
+
+
+def read(rec):
+    try:
+        from relightableavatar_tpu_torch.utils.profiling import totals
+    except ImportError:
+        return None
+    spans = totals()["spans"]
+    top = spans.get("train.step", {}).get("total_s", 0.0)
+    if top <= 0:
+        return None
+    part = sum(spans.get(n, {}).get("total_s", 0.0) for n in ("step.forward", "step.loss"))
+    return 1e3 * rec["unit_s"] * part / top

@@ -13,6 +13,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from relightableavatar_tpu_torch.utils.profiling import host_sync
+
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when a CUDA device is asked
@@ -37,3 +39,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array (numpy, a list, a CPU tensor) on ``device``.  To a card
+    that is a copy from pageable memory, after which the host waits for the
+    card: counted as a host sync (``utils/profiling.host_sync``)."""
+    if device.type == "cuda":
+        host_sync("h2d")
+    return torch.as_tensor(a, dtype=dtype, device=device)

@@ -16,9 +16,12 @@ without the miss skip, 8 lights re-shaded); ``volume`` and ``volume_cull32``,
 ``train_relight``, the reference stage-2 step (``train_check.relight_step_cfg``:
 2 frames x 1024 rays, 16 surface and 4 shadow iterations, 16 x 32 light
 texels, bf16), one step standing for a frame.  Each is rendered once to warm up; then ``REPS`` timed frames of each in
-turns (forward, then backward, ...); then one frame of each with a device
-sync after every stage (bake, sweep, miss march, ray blocks, assembly; the
-sweep's base pass and re-shade; the volume's cull bake and blocks); then
+turns (forward, then backward, ...); then one frame of each inside
+``utils/profiling.collecting()``, whose program spans (the frame's bake,
+sweep, miss march, ray blocks and their trace, band, visibility and shade,
+assembly; the volume's cull bake and blocks; the step's forward, loss,
+backward and update; each HDQ query) and counters (HDQ points and band
+rows, host syncs by site) are printed, with no sync between stages; then
 one frame of each under ``torch.profiler`` with CPU and CUDA activities.  Prints per frame
 the timed frames' wall times, the union of the profiled frame's device
 activity (its busy time) as a share of the median unprofiled wall time, of
@@ -44,6 +47,7 @@ from relightableavatar_tpu_torch.ops import knn_cuda
 from relightableavatar_tpu_torch.renderer.orchestrate import (NovelLightRenderer,
                                                              SphereTracingRenderer)
 from relightableavatar_tpu_torch.renderer.volume import VolumeRenderer
+from relightableavatar_tpu_torch.utils import profiling
 
 REPS = 3    # unprofiled timed frames of each
 TOP = 15    # kernels listed by device time
@@ -142,7 +146,6 @@ class TrainStep:
     def __init__(self, cfg, device="cuda"):
         self.R = train_check.RELIGHT_R if cfg.relighting else train_check.BENCH_R
         self.trainer, self.batch = train_check.make_step(cfg, device, self.R)
-        self.time_stages = False
         self.last_frame = {}
 
     def render(self, batch):
@@ -195,16 +198,15 @@ def main() -> None:
             renderer, batch, _, walls = frames[name]
             walls.append(_wall(renderer, batch))
     for name, (renderer, batch, _, _) in frames.items():
-        renderer.time_stages = True
-        _wall(renderer, batch)
-        renderer.time_stages = False
+        profiling.reset()
+        with profiling.collecting():
+            wall = _wall(renderer, batch)
         lf = renderer.last_frame
-        if not lf:
-            continue
-        print(f"[{name}] with a device sync after each stage: " + ", ".join(
-            f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in lf.items() if k.endswith('_s'))
-            + f"; ray blocks rendered {lf.get('blocks_rendered', lf.get('blocks'))}"
-            f" of {lf.get('blocks')}", flush=True)
+        blocks = (f"; ray blocks rendered {lf.get('blocks_rendered', lf.get('blocks'))} of "
+                  f"{lf.get('blocks')}" if lf else "")
+        print(f"[{name}] spans ({wall:.3f} s wall, no sync between stages): "
+              f"{profiling.summary()}{blocks}", flush=True)
+        profiling.reset()
     for name, (renderer, batch, n_rays, walls) in frames.items():
         _report(name, renderer, batch, n_rays, walls)
 

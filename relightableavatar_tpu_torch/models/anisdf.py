@@ -30,6 +30,7 @@ from relightableavatar_tpu_torch.ops.mlp import (linear_apply, linear_init, mlp_
 from relightableavatar_tpu_torch.ops.point_mesh import signed_mesh_distance
 from relightableavatar_tpu_torch.ops.sdf import sdf_to_occ
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.utils.profiling import count, host_sync, span
 
 
 KNN_IMPLS = ('auto', 'pallas', 'xla', 'grouped')
@@ -403,14 +404,20 @@ def hdq_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
     if 0 < compact < x.shape[0] and hierarchical:
         return _hdq_sdf_compact(params, mcfg, ctx, x, smooth_transition, th,
                                 skip_resd, compact)
-    ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
-    d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(
-        mcfg, ctx, ppts, th if hierarchical else 1e9, verts_sub)
-    sel = torch.nonzero(mask).squeeze(1)
-    net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
-    if not hierarchical:
-        return net_sdf
-    return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
+    with span("hdq.query"):
+        count("hdq.points", x.shape[0])
+        with span("hdq.knn"):
+            ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
+            d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(
+                mcfg, ctx, ppts, th if hierarchical else 1e9, verts_sub)
+        host_sync("hdq_nonzero")
+        sel = torch.nonzero(mask).squeeze(1)
+        count("hdq.band_rows", sel.shape[0])
+        with span("hdq.band"):
+            net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+        if not hierarchical:
+            return net_sdf
+        return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
 
 
 def _band_sdf(params, mcfg: AniSDFConfig, ctx: dict, ppts, d2, bw_k, skip_resd: bool):
@@ -449,12 +456,18 @@ def _hdq_sdf_compact(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
     keep the SMPL point-cloud fallback.  Of the M, those outside the band
     keep it too (JAX masks them after the MLPs), so only the band's go
     through the warp and the MLPs."""
-    ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
-    d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th)
-    order = torch.argsort(d2[:, 0], stable=True)[:M]
-    sel = order[mask[order]]
-    net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
-    return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
+    with span("hdq.query"):
+        count("hdq.points", x.shape[0])
+        with span("hdq.knn"):
+            ppts = lbs.world_points_to_pose_points(x, ctx["R"], ctx["Th"])
+            d2, _, _, mask, smpl_sdf, bw_k = _hdq_knn_stage(mcfg, ctx, ppts, th)
+        order = torch.argsort(d2[:, 0], stable=True)[:M]
+        host_sync("hdq_compact")
+        sel = order[mask[order]]
+        count("hdq.band_rows", sel.shape[0])
+        with span("hdq.band"):
+            net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+        return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
 
 
 def canonical_sdf(params, mcfg: AniSDFConfig, x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ import math
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.device import to_device
+
 
 def gen_light_xyz(env_h: int, env_w: int, env_r: float = 1e2,
                   device: str | torch.device = "cpu"):
@@ -26,8 +28,8 @@ def gen_light_xyz(env_h: int, env_w: int, env_r: float = 1e2,
 
     sin_colat = np.sin(math.pi / 2 - lats_g)
     areas = 4 * math.pi * sin_colat / np.sum(sin_colat)
-    return (torch.as_tensor(xyz.astype(np.float32), device=device),
-            torch.as_tensor(areas.astype(np.float32), device=device))
+    device = torch.device(device)
+    return to_device(xyz.astype(np.float32), device), to_device(areas.astype(np.float32), device)
 
 
 def probe_at_texels(probe: torch.Tensor, light_xyz: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.device import to_device
+
 BIG = 1e6
 PREFIX = 3          # M: leading samples of each ray taken with exact bilinear shifts
 
@@ -183,7 +185,7 @@ def sweep_ratio_volume(grid: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     dirs = np.asarray(dirs, np.float32).reshape(-1, 3)
     dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
     res = grid.shape
-    voxel = (hi - lo) / (torch.tensor(res, dtype=torch.float32, device=dev) - 1)
+    voxel = (hi - lo) / (to_device(res, dev, torch.float32) - 1)
 
     a_dom = np.argmax(np.abs(dirs), axis=-1)
     sgn_dom = np.where(np.take_along_axis(dirs, a_dom[:, None], 1)[:, 0] >= 0, 1.0, -1.0)
@@ -197,7 +199,7 @@ def sweep_ratio_volume(grid: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             g = grid.permute(a, b, c)
             if sgn < 0:
                 g = g.flip(0)
-            d_g = torch.as_tensor(dirs[ids], device=dev)
+            d_g = to_device(dirs[ids], dev)
             # one voxel along a per slice step (toward +axis0 after the
             # flip); in-plane drift in index units
             h = voxel[a] / torch.abs(d_g[:, a])
@@ -210,7 +212,7 @@ def sweep_ratio_volume(grid: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             inv = np.argsort([a, b, c])
             vols.append(vol.permute(*[int(x) for x in np.array([0, 2, 3])[inv]], 1))
             id_chunks.append(ids)
-    order = torch.as_tensor(np.argsort(np.concatenate(id_chunks)), device=dev)
+    order = to_device(np.argsort(np.concatenate(id_chunks)), dev)
     return torch.cat(vols, dim=-1)[..., order].contiguous()
 
 
@@ -220,7 +222,7 @@ def query_ratio_volume(vol: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     Rx, Ry, Rz = vol.shape[:3]
     L = vol.shape[-1]
     flat = vol.reshape(Rx * Ry * Rz, L)
-    res = torch.tensor([Rx, Ry, Rz], dtype=pts.dtype, device=pts.device)
+    res = to_device([Rx, Ry, Rz], pts.device, pts.dtype)
     f = (pts - lo) / (hi - lo) * (res - 1)
     f = torch.minimum(torch.clamp(f, min=0.0), res - 1 - 1e-4)
     b = torch.floor(f)

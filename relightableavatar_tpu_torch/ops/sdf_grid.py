@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.device import to_device
+
 BAKE_CHUNK = 262144     # ceiling of one bake call's points
 
 
@@ -109,7 +111,7 @@ def _cell_rows(grid, lo, hi, x):
         grid = pack_grid_corners(grid)
     cx, cy, cz = grid.shape[:3]
     flat = grid.reshape(cx * cy * cz, 8)
-    res = torch.tensor([cx + 1, cy + 1, cz + 1], dtype=x.dtype, device=x.device)
+    res = to_device([cx + 1, cy + 1, cz + 1], x.device, x.dtype)
     f = (x - lo) / (hi - lo) * (res - 1)
     f = torch.minimum(torch.clamp(f, min=0.0), res - 1 - 1e-4)
     b = torch.floor(f)

@@ -10,17 +10,26 @@ Only collectives that both gloo (the CPU, the tests) and NCCL (the card)
 have are used: ``all_gather``, ``all_reduce``, ``broadcast`` and
 ``barrier``.  A mesh counts the collectives it issues (``RayMesh.counts``),
 so a run can show that the mesh path ran and not the plain one, and keeps
-their sequence (``RayMesh.issued``: op, element count, dtype), which must be
-the same on every rank: a collective that one rank skips hangs the others.
+the latest :data:`ISSUED_KEEP` of their sequence (``RayMesh.issued``: op,
+element count, dtype), which must be the same on every rank: a collective
+that one rank skips hangs the others.  Each collective is a program span
+(``mesh.all_reduce``, ``mesh.all_sum``, ``mesh.gather``, ``mesh.broadcast``)
+and adds the bytes it sends to the counter ``mesh.bytes``
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import os
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from relightableavatar_tpu_torch.utils.profiling import count, span
+
+ISSUED_KEEP = 4096      # latest collectives kept in RayMesh.issued (a 4-card step issues ~641)
 
 
 @dataclass
@@ -34,12 +43,14 @@ class RayMesh:
     device: torch.device
     counts: dict = field(default_factory=lambda: {"gather": 0, "all_reduce": 0,
                                                   "broadcast": 0})
-    issued: list = field(default_factory=list)
+    issued: deque = field(default_factory=lambda: deque(maxlen=ISSUED_KEEP))
 
     def record(self, kind: str, op: str, t: torch.Tensor) -> None:
-        """Count a collective of ``kind`` and append (op, numel, dtype)."""
+        """Count a collective of ``kind``, append (op, numel, dtype) and add
+        its bytes to ``mesh.bytes``."""
         self.counts[kind] += 1
         self.issued.append((op, t.numel(), str(t.dtype)))
+        count("mesh.bytes", t.numel() * t.element_size())
 
 
 def distributed() -> bool:
@@ -127,11 +138,12 @@ def gather_rays(mesh: RayMesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     the same shape.  Outside autograd."""
     if mesh.group is None:
         return x
-    x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.world)]
-    dist.all_gather(parts, x, group=mesh.group)
-    mesh.record("gather", "all_gather", x)
-    return torch.cat(parts, dim=axis)
+    with span("mesh.gather"):
+        x = x.detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(parts, x, group=mesh.group)
+        mesh.record("gather", "all_gather", x)
+        return torch.cat(parts, dim=axis)
 
 
 def all_sum(mesh: RayMesh, x: torch.Tensor) -> torch.Tensor:
@@ -143,10 +155,11 @@ def all_sum(mesh: RayMesh, x: torch.Tensor) -> torch.Tensor:
     all-reduces the gradient again in its backward, W times too large.)"""
     if mesh.group is None:
         return x
-    total = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(total, group=mesh.group)
-    mesh.record("all_reduce", "all_reduce", total)
-    return total + (x - x.detach()) if x.requires_grad else total
+    with span("mesh.all_sum"):
+        total = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total, group=mesh.group)
+        mesh.record("all_reduce", "all_reduce", total)
+        return total + (x - x.detach()) if x.requires_grad else total
 
 
 def all_reduce_(mesh: RayMesh, tensors: list) -> None:
@@ -157,13 +170,14 @@ def all_reduce_(mesh: RayMesh, tensors: list) -> None:
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=mesh.group)
-        mesh.record("all_reduce", "all_reduce", flat)
-        off = 0
-        for t in ts:
-            t.copy_(flat[off:off + t.numel()].view_as(t))
-            off += t.numel()
+        with span("mesh.all_reduce"):
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, group=mesh.group)
+            mesh.record("all_reduce", "all_reduce", flat)
+            off = 0
+            for t in ts:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
 
 
 def replicate(mesh: RayMesh, tensors: list) -> None:
@@ -173,11 +187,12 @@ def replicate(mesh: RayMesh, tensors: list) -> None:
         return
     with torch.no_grad():
         for t in tensors:
-            buf = t.data.contiguous()
-            dist.broadcast(buf, src=0, group=mesh.group)
-            mesh.record("broadcast", "broadcast", buf)
-            if buf.data_ptr() != t.data.data_ptr():
-                t.data.copy_(buf)
+            with span("mesh.broadcast"):
+                buf = t.data.contiguous()
+                dist.broadcast(buf, src=0, group=mesh.group)
+                mesh.record("broadcast", "broadcast", buf)
+                if buf.data_ptr() != t.data.data_ptr():
+                    t.data.copy_(buf)
 
 
 def pad_to_multiple(arr: np.ndarray, m: int, axis: int = 0, value=0.0) -> np.ndarray:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relightableavatar_tpu_torch.device import to_device
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.aabb import pad_box
 from relightableavatar_tpu_torch.ops.brdf import evaluate_shade
@@ -38,8 +39,8 @@ def moller_trumbore(ray_o, ray_d, tris, eps: float = 1e-8):
 
 def compute_ground_tris(orig: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     """A big triangle spanning the ground plane (net_utils.py:392-396)."""
-    n = normalize(torch.tensor([0.3574, 0.8624, 0.3712], dtype=norm.dtype,
-                               device=norm.device))     # fixed 'random' vector
+    n = normalize(to_device([0.3574, 0.8624, 0.3712], norm.device,
+                            norm.dtype))                # fixed 'random' vector
     a = torch.linalg.cross(norm, n)
     b = torch.linalg.cross(norm, a)
     return torch.stack([orig, orig + a, orig + b], dim=0)

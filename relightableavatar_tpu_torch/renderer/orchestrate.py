@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from relightableavatar_tpu_torch.data.rays import get_rays
-from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.device import resolve_device, to_device
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.aabb import pad_box
@@ -49,6 +49,7 @@ from relightableavatar_tpu_torch.renderer.sphere_tracing import (
 from relightableavatar_tpu_torch.renderer.tracing import STConfig, safe_miss_march
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.log import log
+from relightableavatar_tpu_torch.utils.profiling import host_sync, span
 
 
 def pad_rays(ray_o, ray_d, near, far, block, far_pad: float = 0.11):
@@ -83,10 +84,12 @@ class SphereTracingRenderer:
     """The relight / sphere-traced renderer (reference Renderer :943-1115).
 
     ``params`` and the batch's ``ctx`` hold tensors on ``device``; ray
-    arrays in the batch may be numpy.  With ``time_stages`` set, ``render``
-    synchronises the device after each stage and records the stages' wall
-    seconds in ``last_frame``; ``last_frame.shadow_rays`` counts the ground
-    pass's traced shadow rays."""
+    arrays in the batch may be numpy.  ``last_frame`` holds the frame's
+    counts (``blocks``, ``blocks_rendered``, ``grid_res``; ``shadow_rays``,
+    the ground pass's traced shadow rays); its stages are program spans
+    (``render.frame`` > ``render.bake``, ``render.sweep``, ``render.march``,
+    ``render.block``, ``render.assemble``, ``render.ground``;
+    ``utils/profiling.py``)."""
 
     def __init__(self, cfg, params, mcfg: AniSDFConfig, device="cuda"):
         if cfg.get('bruteforce_st', False):
@@ -117,7 +120,6 @@ class SphereTracingRenderer:
         self._term_sdf_cnt = 0.0
         self._grid_res = None
         self._grid_ext = None
-        self.time_stages = False
         self.last_frame = dotdict()
 
     # ------------------------------------------------------------- grid
@@ -130,6 +132,7 @@ class SphereTracingRenderer:
         """Per-axis lattice sizes, fixed on the first frame; warns when a
         later frame's box aspect drifts from it by more than 1.5x (the
         sweep's path-deviation bound assumes near-isotropic voxels)."""
+        host_sync("grid_extent")
         ext = (gbox[1] - gbox[0]).cpu().numpy()
         if self._grid_res is None:
             self._grid_res = axis_resolutions(ext, self.rcfg.shadow_grid)
@@ -180,7 +183,9 @@ class SphereTracingRenderer:
     # ------------------------------------------------------------- envmap
     def to_device(self, a) -> torch.Tensor:
         """A probe or image (numpy or tensor) as a float32 tensor on the device."""
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        if isinstance(a, torch.Tensor) and a.device == self.device:
+            return a.to(torch.float32)
+        return to_device(a, self.device, torch.float32)
 
     def select_envmap(self, batch):
         """The light of the frame: ``batch.novel_lights[cfg.replace_light]``
@@ -193,29 +198,20 @@ class SphereTracingRenderer:
             return dotdict(probe=anisdf.global_env_map(self.params, self.mcfg))
         return None
 
-    def _stage(self, name: str, t0: float) -> float:
-        """Under ``time_stages``: synchronise and record the stage's seconds."""
-        if not self.time_stages:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.last_frame[name + '_s'] = t1 - t0
-        return t1
-
     # ------------------------------------------------------------- render
     @torch.no_grad()
     def render(self, batch) -> dotdict:
         """batch: ray_o, ray_d (..., 3), near, far (...), ctx -> dotdict of
         per-ray maps ((P, ...) tensors on the device) and ``envmap``."""
+        with span("render.frame"):
+            return self._render(batch)
+
+    def _render(self, batch) -> dotdict:
         cfg = self.cfg
         rcfg = self.rcfg
         dev = self.device
         ctx = batch.ctx
         self.last_frame = dotdict()
-        if self.time_stages and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
         envmap = self.select_envmap(batch)
         probe = envmap.probe if envmap is not None else torch.ones(
             (cfg.env_h, cfg.env_w, 3), device=dev)
@@ -238,37 +234,39 @@ class SphereTracingRenderer:
         # also feeds the slice-sweep visibility volume
         shadow_sdf_grid = lvis_volume = gbox = None
         if rcfg.shadow_grid > 0:
-            gbox = self.grid_box(ctx)
-            shadow_sdf_grid = self.bake_grid(ctx, gbox, packed=not rcfg.lvis_sweep)
+            with span("render.bake"):
+                gbox = self.grid_box(ctx)
+                shadow_sdf_grid = self.bake_grid(ctx, gbox, packed=not rcfg.lvis_sweep)
             self.last_frame.grid_res = self._grid_res
-            t0 = self._stage('bake', t0)
             if rcfg.lvis_sweep:
-                lvis_volume = self.sweep_volume(shadow_sdf_grid, gbox)
-                if rcfg.surf_grid_iters > 0:
-                    # every ray block's pre-march reads the lower bound: pack
-                    # the corners once here, not in each lookup
-                    shadow_sdf_grid = pack_grid_corners(shadow_sdf_grid)
-                t0 = self._stage('sweep', t0)
+                with span("render.sweep"):
+                    lvis_volume = self.sweep_volume(shadow_sdf_grid, gbox)
+                    if rcfg.surf_grid_iters > 0:
+                        # every ray block's pre-march reads the lower bound: pack
+                        # the corners once here, not in each lookup
+                        shadow_sdf_grid = pack_grid_corners(shadow_sdf_grid)
 
         # frame-global miss skip: the rays proven to be clean misses by one
         # march over the grid's lower bound are sorted to the tail, and the
         # ray blocks left with only such rays do no device work (their maps
         # are zero, exactly as rendering them would give)
-        put = lambda a: torch.as_tensor(a, device=dev)
+        put = lambda a: to_device(a, dev)
         order = None
         n_active = len(ray_o)
         block_rcfg = rcfg
         if (rcfg.surf_miss_skip and shadow_sdf_grid is not None and self.mesh is None
                 and rcfg.ablate_mode == 'hdq' and not rcfg.want_light_maps
                 and not rcfg.check_bound_sdf and not rcfg.check_termination_sdf):
-            miss = self.miss_march(shadow_sdf_grid, gbox, put(ray_o), put(ray_d),
-                                   put(near), put(far)).cpu().numpy()
-            order = np.argsort(miss, kind='stable')          # active rays first
-            ray_o, ray_d, near, far = ray_o[order], ray_d[order], near[order], far[order]
-            n_active = int((~miss).sum())
-            # the in-block skip would only re-march the now dense blocks
-            block_rcfg = rcfg._replace(surf_miss_skip=False)
-            t0 = self._stage('march', t0)
+            with span("render.march"):
+                miss = self.miss_march(shadow_sdf_grid, gbox, put(ray_o), put(ray_d),
+                                       put(near), put(far))
+                host_sync("miss_mask")
+                miss = miss.cpu().numpy()
+                order = np.argsort(miss, kind='stable')          # active rays first
+                ray_o, ray_d, near, far = ray_o[order], ray_d[order], near[order], far[order]
+                n_active = int((~miss).sum())
+                # the in-block skip would only re-march the now dense blocks
+                block_rcfg = rcfg._replace(surf_miss_skip=False)
 
         own = (lambda a: a) if self.mesh is None else (lambda a: shard_rays(self.mesh, a))
         outs = []
@@ -276,29 +274,31 @@ class SphereTracingRenderer:
             if order is not None and i >= n_active and outs:
                 continue                                     # proven-miss block
             s = slice(i, i + self.block)
-            outs.append(render_human_block(
-                self.params, self.mcfg, ctx, put(own(ray_o[s])), put(own(ray_d[s])),
-                put(own(near[s])), put(own(far[s])), probe, self.light_xyz,
-                self.light_area, self.light_sharp, self.st_surf, self.st_obj,
-                block_rcfg, shadow_sdf_grid=shadow_sdf_grid, lvis_volume=lvis_volume))
+            with span("render.block"):
+                outs.append(render_human_block(
+                    self.params, self.mcfg, ctx, put(own(ray_o[s])), put(own(ray_d[s])),
+                    put(own(near[s])), put(own(far[s])), probe, self.light_xyz,
+                    self.light_area, self.light_sharp, self.st_surf, self.st_obj,
+                    block_rcfg, shadow_sdf_grid=shadow_sdf_grid, lvis_volume=lvis_volume))
         self.last_frame.blocks = len(ray_o) // self.block
         self.last_frame.blocks_rendered = len(outs)
-        t0 = self._stage('blocks', t0)
 
         ret = dotdict()
-        if order is not None:
-            prefix = torch.as_tensor(order[:len(outs) * self.block], device=dev)
-            ret.update(_assemble_unsort(outs, prefix, len(ray_o), P))
-        elif self.mesh is not None:
-            ret.update(self._gather_blocks(outs, P))
-        else:
-            for k in outs[0]:
-                if k.startswith('term_sdf_'):
-                    ret[k] = sum(float(o[k][0]) for o in outs)
-                else:
-                    ret[k] = torch.cat([o[k] for o in outs], dim=0)[:P]
+        with span("render.assemble"):
+            if order is not None:
+                prefix = put(order[:len(outs) * self.block])
+                ret.update(_assemble_unsort(outs, prefix, len(ray_o), P))
+            elif self.mesh is not None:
+                ret.update(self._gather_blocks(outs, P))
+            else:
+                for k in outs[0]:
+                    if k.startswith('term_sdf_'):
+                        for _ in outs:
+                            host_sync("term_sdf")
+                        ret[k] = sum(float(o[k][0]) for o in outs)
+                    else:
+                        ret[k] = torch.cat([o[k] for o in outs], dim=0)[:P]
         ret.envmap = envmap
-        self._stage('assemble', t0)
 
         if cfg.check_termination_sdf:
             # running average |sdf| at termination (reference :765-778)
@@ -307,9 +307,8 @@ class SphereTracingRenderer:
             print(f'avg sdf abs: {self._term_sdf_sum / max(self._term_sdf_cnt, 1.0):.8f}')
 
         if cfg.vis_ground_shading and 'H' in batch:
-            t0 = time.perf_counter()
-            ret = self._render_ground(batch, ret, envmap)
-            self._stage('ground', t0)
+            with span("render.ground"):
+                ret = self._render_ground(batch, ret, envmap)
         return ret
 
     def _gather_blocks(self, outs, P: int) -> dict:
@@ -350,9 +349,10 @@ class SphereTracingRenderer:
         ray_d = ray_d.reshape(F, 3)
 
         # the body's alpha over the full frame; the ground sees its complement
-        mab = torch.as_tensor(np.asarray(batch.mask_at_box).reshape(F), device=dev)
+        mab = to_device(np.asarray(batch.mask_at_box).reshape(F), dev)
         acc = ret.acc_map
         acc_full = acc.new_zeros(F)
+        host_sync("ground_mask")
         acc_full[mab] = acc
         bg_alpha = 1.0 - acc_full
 
@@ -365,14 +365,14 @@ class SphereTracingRenderer:
         image = envmap.get('image', None) if envmap is not None else None
         if image is not None and image.dim() == 4:
             image = image[0]
-        vec = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        vec = lambda a: to_device(np.asarray(a, np.float32), dev)
         g_norm, g_orig, g_albedo = vec(cfg.ground_normal), vec(cfg.ground_origin), \
             vec(cfg.ground_albedo)
 
         pad = (-F) % self.block
-        ro = torch.as_tensor(np.concatenate([ray_o, np.zeros((pad, 3), np.float32)]), device=dev)
-        rd = torch.as_tensor(np.concatenate(
-            [ray_d, np.tile([[0, 0, 1.0]], (pad, 1)).astype(np.float32)]), device=dev)
+        ro = to_device(np.concatenate([ray_o, np.zeros((pad, 3), np.float32)]), dev)
+        rd = to_device(np.concatenate(
+            [ray_d, np.tile([[0, 0, 1.0]], (pad, 1)).astype(np.float32)]), dev)
         af = torch.cat([bg_alpha, bg_alpha.new_zeros(pad)])
         stats = {}
         grounds = []
@@ -394,6 +394,7 @@ class SphereTracingRenderer:
             full = torch.zeros_like(gv)
             if k in ret:
                 a = acc if ret[k].dim() == 1 else acc[:, None]
+                host_sync("ground_mask")
                 full[mab] = ret[k] * a
             merged[k] = full + gv * (bg_alpha if gv.dim() == 1 else bg_alpha[:, None])
         merged.acc_map = torch.ones(F, dtype=acc.dtype, device=dev)

@@ -37,7 +37,9 @@ from relightableavatar_tpu_torch.ops.sdf_grid import (build_sdf_grid, grid_sdf,
                                                       grid_sdf_lower_bound)
 from relightableavatar_tpu_torch.renderer.tracing import (STConfig, sphere_trace,
                                                           sphere_trace_miss_skip)
+from relightableavatar_tpu_torch.device import to_device
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.utils.profiling import host_sync, span
 
 ABLATE_MODES = ('hdq', 'world', 'can', 'curve')
 
@@ -193,6 +195,7 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
                                  dist_th=lv.dist_th, skip_resd=rcfg.shadow_skip_resd,
                                  compact=n_compact, verts_sub=rcfg.shadow_verts_sub))
     occ = torch.ones((F, 1), dtype=surf.dtype, device=surf.device)
+    host_sync("shadow_nonzero")
     sel_all = torch.nonzero(active[:, 0]).squeeze(1)
     if stats is not None:
         stats['shadow_rays'] = stats.get('shadow_rays', 0) + sel_all.shape[0]
@@ -204,6 +207,8 @@ def light_visibility(params, mcfg: AniSDFConfig, ctx,
             b = slice(s, s + blk)
             _, _, occ_p[b], _, _ = sphere_trace(sdf_fn, ro[b], rd[b], nr[b], fr[b], lv,
                                                 tan_i=ti[b], soft_shadow=soft_shadow)
+        host_sync("shadow_unsort")
+        host_sync("shadow_unsort")
         occ[order[order < F]] = occ_p[order < F]
     else:
         for s in range(0, sel_all.shape[0], blk):
@@ -351,7 +356,7 @@ def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light
         lower_bound_sdf = lambda x: grid_sdf_lower_bound(grid, gbox[0], gbox[1], x)
 
     # ---- surface intersection (the tracer runs without a graph)
-    with torch.no_grad():
+    with torch.no_grad(), span("block.trace"):
         surf, edge, occ, st_t, ot_t = _surface_trace(
             params, mcfg, ctx, surf_sdf, lower_bound_sdf, ray_o, ray_d, near_c,
             far_c, st_surf, rcfg, training)
@@ -382,72 +387,73 @@ def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light
         term_sdf_cnt = torch.sum(w).reshape(1)
 
     # ---- 3-sample surface-band volume render (reference :607-620)
-    S = rcfg.n_samples
-    if S == 1:
-        zval = torch.tensor([0.5], dtype=dt, device=dev)
-    else:
-        zval = torch.linspace(0.0, 1.0, S, dtype=dt, device=dev)
-    net_z = zval * (2 * rcfg.surf_sample_range) - rcfg.surf_sample_range
-    net_pts = surf[:, None, :] + net_z[None, :, None] * ray_d[:, None, :]
-    net_view = ray_d[:, None, :].expand(P, S, 3)
+    with span("block.band"):
+        S = rcfg.n_samples
+        if S == 1:
+            zval = to_device([0.5], dev, dt)
+        else:
+            zval = torch.linspace(0.0, 1.0, S, dtype=dt, device=dev)
+        net_z = zval * (2 * rcfg.surf_sample_range) - rcfg.surf_sample_range
+        net_pts = surf[:, None, :] + net_z[None, :, None] * ray_d[:, None, :]
+        net_view = ray_d[:, None, :].expand(P, S, 3)
 
-    ret = anisdf.forward(params, mcfg, ctx, net_pts.reshape(P * S, 3),
-                         net_view.reshape(P * S, 3), training=training,
-                         jitter_noise=jitter_noise if training else None)
-    raw = ret.raw.reshape(P, S, -1)
-    raw, occ_s = raw[..., :-1], raw[..., -1]
-    _, raw, occ_v = volume_rendering(raw, occ_s, bg_brightness=rcfg.bg_brightness)
-    raw = raw / (occ_v[..., None] + 1e-8)     # un-normalize (reference :621)
+        ret = anisdf.forward(params, mcfg, ctx, net_pts.reshape(P * S, 3),
+                             net_view.reshape(P * S, 3), training=training,
+                             jitter_noise=jitter_noise if training else None)
+        raw = ret.raw.reshape(P, S, -1)
+        raw, occ_s = raw[..., :-1], raw[..., -1]
+        _, raw, occ_v = volume_rendering(raw, occ_s, bg_brightness=rcfg.bg_brightness)
+        raw = raw / (occ_v[..., None] + 1e-8)     # un-normalize (reference :621)
 
-    out = dotdict()
-    out.acc_map = acc
-    if training:
-        out.edge_sdf = d[:, 0]
-        out.closest_sdf = d_cl[:, 0]
-        for key in ('reg_mask', 'residuals', 'observed_gradients', 'gradients', 'albedo',
-                    'roughness', 'albedo_jitter', 'roughness_jitter'):
-            if key in ret:
-                out[key] = ret[key]
-    else:
-        out.surf_map = surf * hit[:, None]
-        out.depth_map = depth * hit
-
-    # channel conventions (reference :632-639)
-    C = raw.shape[-1]
-    rgb = albedo = roughness = cpts = None
-    if C == 3 + 1 + 3:                  # relight training: albedo rough norm
-        albedo, roughness, norm = raw[..., :3], raw[..., 3:4], raw[..., 4:7]
-    elif C == 3 + 3:                    # anisdf training: norm rgb
-        norm, rgb = raw[..., :3], raw[..., 3:6]
-    elif C == 3 + 3 + 3 + 3 + 1 + 3:    # relight: cpts bpts resd albedo rough norm
-        cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
-        albedo, roughness, norm = raw[..., 9:12], raw[..., 12:13], raw[..., 13:16]
-    elif C == 3 + 3 + 3 + 3 + 3:        # anisdf: cpts bpts resd norm rgb
-        cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
-        norm, rgb = raw[..., 9:12], raw[..., 12:15]
-    else:
-        raise NotImplementedError(f"raw channels {C}")
-
-    norm = torch.where(torch.sum(norm, dim=-1, keepdim=True) == 0,
-                       torch.ones_like(norm), norm)
-    norm = normalize(norm)
-
-    if albedo is not None:
-        albedo = torch.clamp(albedo, mcfg.albedo_bias, mcfg.albedo_bias + mcfg.albedo_slope)
-        roughness = torch.clamp(roughness, mcfg.roughness_bias,
-                                mcfg.roughness_bias + mcfg.roughness_slope)
+        out = dotdict()
+        out.acc_map = acc
         if training:
-            out.volume_albedo = albedo
+            out.edge_sdf = d[:, 0]
+            out.closest_sdf = d_cl[:, 0]
+            for key in ('reg_mask', 'residuals', 'observed_gradients', 'gradients', 'albedo',
+                        'roughness', 'albedo_jitter', 'roughness_jitter'):
+                if key in ret:
+                    out[key] = ret[key]
+        else:
+            out.surf_map = surf * hit[:, None]
+            out.depth_map = depth * hit
 
-    if not training:
-        out.norm_map = norm * hit[:, None]
+        # channel conventions (reference :632-639)
+        C = raw.shape[-1]
+        rgb = albedo = roughness = cpts = None
+        if C == 3 + 1 + 3:                  # relight training: albedo rough norm
+            albedo, roughness, norm = raw[..., :3], raw[..., 3:4], raw[..., 4:7]
+        elif C == 3 + 3:                    # anisdf training: norm rgb
+            norm, rgb = raw[..., :3], raw[..., 3:6]
+        elif C == 3 + 3 + 3 + 3 + 1 + 3:    # relight: cpts bpts resd albedo rough norm
+            cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
+            albedo, roughness, norm = raw[..., 9:12], raw[..., 12:13], raw[..., 13:16]
+        elif C == 3 + 3 + 3 + 3 + 3:        # anisdf: cpts bpts resd norm rgb
+            cpts, bpts, resd = raw[..., :3], raw[..., 3:6], raw[..., 6:9]
+            norm, rgb = raw[..., 9:12], raw[..., 12:15]
+        else:
+            raise NotImplementedError(f"raw channels {C}")
+
+        norm = torch.where(torch.sum(norm, dim=-1, keepdim=True) == 0,
+                           torch.ones_like(norm), norm)
+        norm = normalize(norm)
+
         if albedo is not None:
-            out.albedo_map = albedo * hit[:, None]
-            out.roughness_map = roughness[..., 0] * hit
-        if cpts is not None:
-            out.cpts_map = cpts * hit[:, None]
-            out.bpts_map = bpts * hit[:, None]
-            out.resd_map = resd * hit[:, None]
+            albedo = torch.clamp(albedo, mcfg.albedo_bias, mcfg.albedo_bias + mcfg.albedo_slope)
+            roughness = torch.clamp(roughness, mcfg.roughness_bias,
+                                    mcfg.roughness_bias + mcfg.roughness_slope)
+            if training:
+                out.volume_albedo = albedo
+
+        if not training:
+            out.norm_map = norm * hit[:, None]
+            if albedo is not None:
+                out.albedo_map = albedo * hit[:, None]
+                out.roughness_map = roughness[..., 0] * hit
+            if cpts is not None:
+                out.cpts_map = cpts * hit[:, None]
+                out.bpts_map = bpts * hit[:, None]
+                out.resd_map = resd * hit[:, None]
 
     # ---- relight shading (reference :707-760)
     if rcfg.relighting and albedo is not None:
@@ -466,82 +472,84 @@ def _human_block(params, mcfg, ctx, ray_o, ray_d, near, far, envmap_probe, light
             sharp_c = 1.0 / torch.sqrt(area_c / np.pi)
             xyz_v = xyz_c.reshape(hc * wc, 3)
             sharp_v = sharp_c.reshape(hc * wc)
-            U = torch.as_tensor(lvis_upsample_matrix(hc, wc, eH, eW), device=dev)
+            U = to_device(lvis_upsample_matrix(hc, wc, eH, eW), dev)
         else:
             xyz_v, sharp_v, U = xyz, sharp, None
 
-        if (rcfg.lvis_sweep and lvis_volume is not None and gbox is not None
-                and not rcfg.no_visibility and not rcfg.local_visibility):
-            # one trilinear read of the sweep volume per surface point,
-            # offset along the normal so it stays on outside cells
-            voxel = torch.max(gbox[1] - gbox[0]) / (rcfg.shadow_grid - 1)
-            q = surf + norm * (rcfg.lvis_query_offset * voxel)
-            r_vol = query_ratio_volume(lvis_volume, gbox[0], gbox[1], q)
-            if rcfg.no_dfss:
-                tan_iv = torch.full_like(sharp_v, st_obj.tan_i)
-            else:
-                tan_iv = st_obj.tan_i_multiplier * sharp_v
-            occ_v = torch.clamp(r_vol * (tan_iv[None, :] * 0.5), 0.0, 1.0)
-            ldot = norm @ normalize(xyz_v).to(norm.dtype).T
-            lvis = (occ_v * ((ldot > 0) & (acc[:, None] > 0))).detach()
-        else:
-            lvis, ldot = light_visibility(
-                params, mcfg, ctx, surf, norm, acc, xyz_v, sharp_v,
-                gbox if shadow_sdf is not None else bbox, st_obj, rcfg,
-                soft_shadow=not rcfg.no_dfss, sdf_override=shadow_sdf, stats=stats)
-        if U is not None:
-            lvis = torch.clamp(lvis @ U.to(lvis.dtype), 0.0, 1.0)
-            ldot = norm @ normalize(xyz).to(norm.dtype).T
-            ldot_mask = (ldot > 0) & (acc[:, None] > 0)
-            lvis = lvis * ldot_mask
-
-        surf2light = normalize(xyz[None, :, :] - surf[:, None, :])   # (P, L, 3)
-        surf2cam = normalize(ray_o - surf)                            # (P, 3)
-        if rcfg.distant_envmap:
-            # light[l] = the probe at texel l's own direction
-            light = probe_at_texels(envmap_probe, light_xyz)[None].expand(P, L, 3)
-        else:
-            light = sample_envmap_image(envmap_probe, surf2light)     # (P, L, 3)
-
-        if rcfg.only_visibility:
-            ldot_shade = torch.ones_like(ldot)
-            light = torch.mean(light, dim=-1, keepdim=True).expand(light.shape)
-        elif rcfg.cancel_cosine:
-            ldot_shade = torch.ones_like(ldot)
-        else:
-            ldot_shade = ldot
-
-        shade = evaluate_shade(lvis, ldot_shade, area, light)
-        brdf = microfacet_brdf(surf2light, surf2cam, norm, albedo, roughness,
-                               f0=rcfg.fresnel_f0, lambert_only=rcfg.lambert_only,
-                               glossy_only=rcfg.glossy_only,
-                               cancel_cosine=rcfg.cancel_cosine)
-        rgb = torch.sum(brdf * shade, dim=-2)
-        if rcfg.tonemapping:
-            rgb = linear2srgb(rgb)
-        out.rgb_map = rgb
-
-        if not training:
-            if rcfg.want_spec_map:
-                spec_brdf = microfacet_brdf(
-                    surf2light, surf2cam, norm, torch.zeros_like(albedo), roughness,
-                    f0=rcfg.fresnel_f0, cancel_cosine=rcfg.cancel_cosine)
-                if rcfg.cancel_cosine:
-                    spec_ldot = 1 / (torch.abs(ldot) + 1e-8)
+        with span("block.visibility"):
+            if (rcfg.lvis_sweep and lvis_volume is not None and gbox is not None
+                    and not rcfg.no_visibility and not rcfg.local_visibility):
+                # one trilinear read of the sweep volume per surface point,
+                # offset along the normal so it stays on outside cells
+                voxel = torch.max(gbox[1] - gbox[0]) / (rcfg.shadow_grid - 1)
+                q = surf + norm * (rcfg.lvis_query_offset * voxel)
+                r_vol = query_ratio_volume(lvis_volume, gbox[0], gbox[1], q)
+                if rcfg.no_dfss:
+                    tan_iv = torch.full_like(sharp_v, st_obj.tan_i)
                 else:
-                    spec_ldot = torch.ones_like(ldot)
-                spec_shade = evaluate_shade(torch.ones_like(lvis), spec_ldot, area, light)
-                out.spec_map = torch.sum(spec_brdf * spec_shade, dim=-2)
+                    tan_iv = st_obj.tan_i_multiplier * sharp_v
+                occ_v = torch.clamp(r_vol * (tan_iv[None, :] * 0.5), 0.0, 1.0)
+                ldot = norm @ normalize(xyz_v).to(norm.dtype).T
+                lvis = (occ_v * ((ldot > 0) & (acc[:, None] > 0))).detach()
+            else:
+                lvis, ldot = light_visibility(
+                    params, mcfg, ctx, surf, norm, acc, xyz_v, sharp_v,
+                    gbox if shadow_sdf is not None else bbox, st_obj, rcfg,
+                    soft_shadow=not rcfg.no_dfss, sdf_override=shadow_sdf, stats=stats)
+            if U is not None:
+                lvis = torch.clamp(lvis @ U.to(lvis.dtype), 0.0, 1.0)
+                ldot = norm @ normalize(xyz).to(norm.dtype).T
+                ldot_mask = (ldot > 0) & (acc[:, None] > 0)
+                lvis = lvis * ldot_mask
 
-            shade_vis = evaluate_shade(lvis, ldot, area, light)
-            out.shade_map = torch.sum(shade_vis, dim=-2) * rcfg.shading_albedo / np.pi
-            if rcfg.vis_lvis_map:
-                out.shade_map = torch.mean(lvis, dim=-1, keepdim=True).expand(P, 3)
-            if rcfg.vis_ldot_map:
-                out.shade_map = torch.mean(ldot, dim=-1, keepdim=True).expand(P, 3)
-            if rcfg.want_light_maps:
-                out.lvis_map = lvis
-                out.ldot_map = ldot
+        with span("block.shade"):
+            surf2light = normalize(xyz[None, :, :] - surf[:, None, :])   # (P, L, 3)
+            surf2cam = normalize(ray_o - surf)                            # (P, 3)
+            if rcfg.distant_envmap:
+                # light[l] = the probe at texel l's own direction
+                light = probe_at_texels(envmap_probe, light_xyz)[None].expand(P, L, 3)
+            else:
+                light = sample_envmap_image(envmap_probe, surf2light)     # (P, L, 3)
+
+            if rcfg.only_visibility:
+                ldot_shade = torch.ones_like(ldot)
+                light = torch.mean(light, dim=-1, keepdim=True).expand(light.shape)
+            elif rcfg.cancel_cosine:
+                ldot_shade = torch.ones_like(ldot)
+            else:
+                ldot_shade = ldot
+
+            shade = evaluate_shade(lvis, ldot_shade, area, light)
+            brdf = microfacet_brdf(surf2light, surf2cam, norm, albedo, roughness,
+                                   f0=rcfg.fresnel_f0, lambert_only=rcfg.lambert_only,
+                                   glossy_only=rcfg.glossy_only,
+                                   cancel_cosine=rcfg.cancel_cosine)
+            rgb = torch.sum(brdf * shade, dim=-2)
+            if rcfg.tonemapping:
+                rgb = linear2srgb(rgb)
+            out.rgb_map = rgb
+
+            if not training:
+                if rcfg.want_spec_map:
+                    spec_brdf = microfacet_brdf(
+                        surf2light, surf2cam, norm, torch.zeros_like(albedo), roughness,
+                        f0=rcfg.fresnel_f0, cancel_cosine=rcfg.cancel_cosine)
+                    if rcfg.cancel_cosine:
+                        spec_ldot = 1 / (torch.abs(ldot) + 1e-8)
+                    else:
+                        spec_ldot = torch.ones_like(ldot)
+                    spec_shade = evaluate_shade(torch.ones_like(lvis), spec_ldot, area, light)
+                    out.spec_map = torch.sum(spec_brdf * spec_shade, dim=-2)
+
+                shade_vis = evaluate_shade(lvis, ldot, area, light)
+                out.shade_map = torch.sum(shade_vis, dim=-2) * rcfg.shading_albedo / np.pi
+                if rcfg.vis_lvis_map:
+                    out.shade_map = torch.mean(lvis, dim=-1, keepdim=True).expand(P, 3)
+                if rcfg.vis_ldot_map:
+                    out.shade_map = torch.mean(ldot, dim=-1, keepdim=True).expand(P, 3)
+                if rcfg.want_light_maps:
+                    out.lvis_map = lvis
+                    out.ldot_map = ldot
     else:
         out.rgb_map = rgb if rgb is not None else torch.zeros((P, 3), dtype=dt, device=dev)
 

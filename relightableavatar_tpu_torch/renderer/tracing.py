@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from relightableavatar_tpu_torch.utils.profiling import host_sync
+
 
 class STConfig(NamedTuple):
     """Sphere-tracing knobs (reference cfg.sphere_tracing / cfg.obj_lvis)."""
@@ -183,6 +185,7 @@ def sphere_trace_miss_skip(sdf_fn, lb_fn, ray_o, ray_d, near, far, st: STConfig,
     surf, edge = end.clone(), end.clone()
     occ = torch.ones_like(far)
     st_t, ot_t = far.clone(), far.clone()
+    host_sync("miss_skip_nonzero")
     sel = torch.nonzero(~miss).squeeze(1)
     if sel.numel():
         res = sphere_trace(sdf_fn, ray_o[sel], ray_d[sel], near[sel], far[sel], st,

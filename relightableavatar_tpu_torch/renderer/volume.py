@@ -13,12 +13,11 @@ axis); the other samples keep the proxy's occupancy.
 """
 from __future__ import annotations
 
-import time
 
 import numpy as np
 import torch
 
-from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.device import resolve_device, to_device
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.aabb import pad_box
@@ -26,6 +25,7 @@ from relightableavatar_tpu_torch.ops.sdf import render_weights, sdf_to_occ, volu
 from relightableavatar_tpu_torch.ops.sdf_grid import axis_resolutions, build_hdq_grid, grid_sdf
 from relightableavatar_tpu_torch.renderer.orchestrate import pad_rays
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
+from relightableavatar_tpu_torch.utils.profiling import host_sync, span
 
 CULL_DILATE = 2     # samples each side of a proxy weight that share its score
 
@@ -36,8 +36,8 @@ def sample_fractions(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     some interior values differ by one ulp from ``i / (n - 1)``), the last 1."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
-    return torch.arange(n, dtype=dtype, device=device) * torch.tensor(
-        1.0 / (n - 1), dtype=dtype, device=device)
+    return torch.arange(n, dtype=dtype, device=device) * to_device(
+        1.0 / (n - 1), torch.device(device), dtype)
 
 
 def stratified(z_vals: torch.Tensor, t_rand: torch.Tensor) -> torch.Tensor:
@@ -139,9 +139,9 @@ def _render_block(params, mcfg: AniSDFConfig, ctx, ray_o, ray_d, near, far,
 class VolumeRenderer:
     """Pads the rays to whole ``tpu.ray_block`` blocks and renders them
     block by block.  ``params`` and the batch's ``ctx`` hold tensors on
-    ``device``; ray arrays may be numpy.  With ``time_stages`` set,
-    ``render`` synchronises after the cull grid's bake and after the blocks
-    and records their seconds in ``last_frame``."""
+    ``device``; ray arrays may be numpy.  ``last_frame.blocks`` counts the
+    frame's blocks; its stages are the program spans ``volume.bake`` and
+    ``volume.blocks`` (``utils/profiling.py``)."""
 
     def __init__(self, cfg, params, mcfg: AniSDFConfig, device="cuda"):
         self.device = resolve_device(device)
@@ -149,12 +149,7 @@ class VolumeRenderer:
         self.params = params
         self.mcfg = mcfg
         self._grid_res = None
-        self.time_stages = False
         self.last_frame = dotdict()
-
-    def _sync(self):
-        if self.time_stages and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def bake_cull_grid(self, ctx):
         """The frame's packed HDQ SDF grid for sample culling over the body
@@ -162,6 +157,7 @@ class VolumeRenderer:
         is fixed on the first frame."""
         gbox = pad_box(ctx["wbounds"], float(self.cfg.tpu.grid_margin))
         if self._grid_res is None:
+            host_sync("grid_extent")
             ext = (gbox[1] - gbox[0]).cpu().numpy()
             self._grid_res = axis_resolutions(ext, int(self.cfg.tpu.volume_grid))
         grid = build_hdq_grid(self.params, self.mcfg, ctx, gbox[0], gbox[1],
@@ -200,7 +196,7 @@ class VolumeRenderer:
                            acc_map=torch.zeros((0,), device=dev))
         block = int(cfg.tpu.ray_block)
         S = int(cfg.n_samples)
-        put = lambda a: torch.as_tensor(a, device=dev)
+        put = lambda a: to_device(a, dev)
         outs = []
         for i in range(0, len(ray_o), block):
             s = slice(i, i + block)
@@ -227,28 +223,23 @@ class VolumeRenderer:
             return dotdict(rgb_map=torch.zeros((0, 3), device=dev),
                            acc_map=torch.zeros((0,), device=dev))
 
-        self._sync()
-        t0 = time.perf_counter()
         cull_k = int(cfg.tpu.volume_cull)
         grid = glo = ghi = None
         if cull_k and cull_k < int(cfg.n_samples):
-            grid, glo, ghi = self.bake_cull_grid(batch.ctx)
-            self._sync()
-            self.last_frame.bake_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
+            with span("volume.bake"):
+                grid, glo, ghi = self.bake_cull_grid(batch.ctx)
         else:
             cull_k = 0
 
-        put = lambda a: torch.as_tensor(a, device=dev)
+        put = lambda a: to_device(a, dev)
         outs = []
-        for i in range(0, len(ray_o), block):
-            s = slice(i, i + block)
-            outs.append(_render_block(
-                self.params, self.mcfg, batch.ctx, put(ray_o[s]), put(ray_d[s]),
-                put(near[s]), put(far[s]), int(cfg.n_samples), float(cfg.bg_brightness),
-                cull_k=cull_k, grid=grid, glo=glo, ghi=ghi))
-        merged = dotdict({k: torch.cat([o[k] for o in outs], dim=0)[:P] for k in outs[0]})
-        self._sync()
-        self.last_frame.blocks_s = time.perf_counter() - t0
+        with span("volume.blocks"):
+            for i in range(0, len(ray_o), block):
+                s = slice(i, i + block)
+                outs.append(_render_block(
+                    self.params, self.mcfg, batch.ctx, put(ray_o[s]), put(ray_d[s]),
+                    put(near[s]), put(far[s]), int(cfg.n_samples), float(cfg.bg_brightness),
+                    cull_k=cull_k, grid=grid, glo=glo, ghi=ghi))
+            merged = dotdict({k: torch.cat([o[k] for o in outs], dim=0)[:P] for k in outs[0]})
         self.last_frame.blocks = len(outs)
         return merged

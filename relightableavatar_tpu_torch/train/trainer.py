@@ -39,7 +39,7 @@ from os.path import join
 import numpy as np
 import torch
 
-from relightableavatar_tpu_torch.device import resolve_device
+from relightableavatar_tpu_torch.device import resolve_device, to_device
 from relightableavatar_tpu_torch.models import anisdf
 from relightableavatar_tpu_torch.models.anisdf import AniSDFConfig
 from relightableavatar_tpu_torch.ops.envmap import gen_light_xyz
@@ -57,7 +57,7 @@ from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.flops import (device_peaks, rate_text,
                                                      relight_step_flops, train_step_flops)
 from relightableavatar_tpu_torch.utils.log import log
-from relightableavatar_tpu_torch.utils.profiling import Profiler
+from relightableavatar_tpu_torch.utils.profiling import Profiler, host_sync, span
 
 RAY_KEYS = ('ray_o', 'ray_d', 'near', 'far', 'rgb', 'msk', 'norm', 'sem')
 XYZ_NOISE_STD = 0.02    # the relight smoothness pair's jitter (relight_network.py:107-118)
@@ -237,7 +237,14 @@ class Trainer:
         """One optimiser step on a collated batch; returns the step's stats
         (scalar tensors on the device: the mean over frames, averaged over
         chunks).  The relight step's jitter (B, R, S, 3) is drawn from the
-        generator, N(0, XYZ_NOISE_STD), unless ``jitter_noise`` gives it."""
+        generator, N(0, XYZ_NOISE_STD), unless ``jitter_noise`` gives it.
+        Its phases are program spans (``train.step`` > ``step.forward``,
+        ``step.loss``, ``step.backward`` a chunk and frame, then
+        ``step.grad_all_reduce`` under a mesh and ``step.update``)."""
+        with span("train.step"):
+            return self._step(batch, iter_step, jitter_noise)
+
+    def _step(self, batch: dotdict, iter_step: int, jitter_noise) -> dotdict:
         cfg = self.cfg
         S = int(cfg.n_samples)
         B, R = batch.rgb.shape[:2]
@@ -265,10 +272,17 @@ class Trainer:
             sl = slice(c * RC + own.start, c * RC + own.stop)
             for b in range(B):
                 rays = dotdict({k: batch[k][b, sl] for k in keys})
-                out = self._frame_forward(batch.ctx[b], rays,
-                                          None if rand is None else rand[b, sl])
-                loss, st = anisdf_losses(self.weights, out, rays, iter_step, self.mesh)
-                (loss / (B * NC)).backward()
+                with span("step.forward"):
+                    out = self._frame_forward(batch.ctx[b], rays,
+                                              None if rand is None else rand[b, sl])
+                with span("step.loss"):
+                    loss, st = anisdf_losses(self.weights, out, rays, iter_step, self.mesh)
+                with span("step.backward"):
+                    if self.device.type == "cuda":
+                        # torch's engine waits for the card once a backward, at
+                        # the loss's root node (sync debug mode reports it there)
+                        host_sync("backward")
+                    (loss / (B * NC)).backward()
                 for k, v in st.items():
                     v = v.detach() / (B * NC)
                     stats[k] = stats[k] + v if k in stats else v
@@ -276,11 +290,15 @@ class Trainer:
             if t.grad is None:      # unused by this stage (the relight step's rgb)
                 t.grad = torch.zeros_like(t)
         if self.mesh is not None:
-            all_reduce_(self.mesh, [t.grad for _, t in self.named])
+            with span("step.grad_all_reduce"):
+                all_reduce_(self.mesh, [t.grad for _, t in self.named])
             if self.relight:
-                n = torch.tensor(self.shadow_rays, dtype=torch.int64, device=self.device)
-                self.shadow_rays = int(all_sum(self.mesh, n))
-        self.optimizer.step()
+                n = to_device(self.shadow_rays, self.device, torch.int64)
+                n = all_sum(self.mesh, n)
+                host_sync("shadow_rays")
+                self.shadow_rays = int(n)
+        with span("step.update"):
+            self.optimizer.step()
         return stats
 
     def _frame_forward(self, ctx, rays: dotdict, rand) -> dotdict:

@@ -130,7 +130,7 @@ def test_mesh_helpers_without_a_group():
     pm.all_reduce_(mesh, [x.detach()])
     pm.replicate(mesh, [x])
     pm.barrier()
-    assert mesh.counts == {"gather": 0, "all_reduce": 0, "broadcast": 0} and mesh.issued == []
+    assert mesh.counts == {"gather": 0, "all_reduce": 0, "broadcast": 0} and list(mesh.issued) == []
 
 
 @pytest.mark.parametrize("shape,m,axis", [((5, 3), 4, 0), ((8, 2), 4, 0), ((3, 7), 3, 1),

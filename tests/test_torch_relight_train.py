@@ -424,7 +424,8 @@ def test_profiler_writes_a_trace_per_active_window(tmp_path):
         torch.ones(8).sum()
         prof.step()
     prof.close()
-    assert sorted(os.listdir(tmp_path / 'profile')) == ['trace_0.json', 'trace_1.json']
+    assert sorted(os.listdir(tmp_path / 'profile')) == ['spans_0.json', 'spans_1.json',
+                                                        'trace_0.json', 'trace_1.json']
 
 
 def test_relight_step_flops_by_hand():
