@@ -11,7 +11,8 @@ two-level bounding-sphere KNN (``knn_grouped``); ``sample_vert_cnt`` > 3
 takes the exact plain top K.  The point encoder is the positional encoding
 or, under ``e_type='hash'``, the hash grid (``ops/hashgrid.py``).  MLPs run
 in float32 or, under ``tpu.bf16_mlp`` / ``tpu.bf16_act``, with bfloat16
-matmuls (``ops/mlp.py``).
+matmuls (``ops/mlp.py``).  On the card the HDQ band's warp and MLPs replay
+as one CUDA graph where the query allows it (:func:`_band`).
 """
 from __future__ import annotations
 
@@ -31,10 +32,12 @@ from relightableavatar_tpu_torch.ops.point_mesh import signed_mesh_distance
 from relightableavatar_tpu_torch.ops.sdf import sdf_to_occ
 from relightableavatar_tpu_torch.utils.dotdict import dotdict
 from relightableavatar_tpu_torch.utils.profiling import count, host_sync, span
+from relightableavatar_tpu_torch.utils.row_graphs import RowGraphs
 
 
 KNN_IMPLS = ('auto', 'pallas', 'xla', 'grouped')
 E_TYPES = ('pe', 'hash')
+BAND_GRAPHS = RowGraphs("hdq.band")     # the HDQ band's CUDA graphs (:func:`_band`)
 
 
 class AniSDFConfig(NamedTuple):
@@ -414,10 +417,39 @@ def hdq_sdf(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
         sel = torch.nonzero(mask).squeeze(1)
         count("hdq.band_rows", sel.shape[0])
         with span("hdq.band"):
-            net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+            net_sdf = _band(params, mcfg, ctx, ppts, d2, bw_k, sel, skip_resd)
         if not hierarchical:
-            return net_sdf
+            return net_sdf.clone()      # a replay's output is the next query's buffer
         return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
+
+
+def _band(params, mcfg: AniSDFConfig, ctx: dict, ppts, d2, bw_k, sel, skip_resd: bool):
+    """:func:`_band_sdf` at rows ``sel`` of the KNN stage's outputs: one
+    replay of :data:`BAND_GRAPHS` where it takes the call
+    (``utils/row_graphs.py``: on CUDA, without autograd, at most 32,768
+    rows), else eager; never replayed under ``smpl_distance``.  A replay's
+    output is valid until the next query's."""
+    out = BAND_GRAPHS.run(
+        (mcfg, skip_resd), (t for k in _BAND_PARAMS if k in params for t in _leaves(params[k])),
+        lambda rows, c: _band_sdf(params, mcfg, c, *rows, skip_resd), (ppts, d2, bw_k), sel,
+        {k: ctx[k] for k in _BAND_CTX if k in ctx}, capturable=not mcfg.smpl_distance)
+    if out is None:
+        out = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+    return out
+
+
+_BAND_PARAMS = ("resd", "sdf", "resd_hash", "sdf_hash")   # what _band_sdf reads of params
+_BAND_CTX = ("A", "big_A", "poses")                         # and of ctx, but for smpl_distance
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = tree.values()
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in tree:
+            yield from _leaves(v)
 
 
 def _band_sdf(params, mcfg: AniSDFConfig, ctx: dict, ppts, d2, bw_k, skip_resd: bool):
@@ -466,7 +498,7 @@ def _hdq_sdf_compact(params, mcfg: AniSDFConfig, ctx: dict, x: torch.Tensor,
         sel = order[mask[order]]
         count("hdq.band_rows", sel.shape[0])
         with span("hdq.band"):
-            net_sdf = _band_sdf(params, mcfg, ctx, ppts[sel], d2[sel], bw_k[sel], skip_resd)
+            net_sdf = _band(params, mcfg, ctx, ppts, d2, bw_k, sel, skip_resd)
         return _blend(smpl_sdf, sel, net_sdf, th, smooth_transition)
 
 

@@ -30,7 +30,7 @@ BLOCK_STAGES = {"block.trace", "block.band", "block.visibility", "block.shade"}
 READERS = {"trace_ms.frame": "tiny.frame", "shadow_ms.frame": "tiny.frame",
            "hdq_ms.frame": "tiny.frame", "host_syncs.frame": "tiny.frame",
            "band_rows.frame": "tiny.frame", "forward_ms.train": "tiny.train",
-           "backward_ms.train": "tiny.train"}
+           "backward_ms.train": "tiny.train", "hdq_graph_pct.frame": "tiny.frame"}
 
 
 @pytest.fixture(autouse=True)
@@ -261,6 +261,7 @@ def test_traced_tiny_cells_read_the_seven_metrics(name):
         assert m["trace_ms.frame"] + m["shadow_ms.frame"] <= unit_ms * (1 + 1e-9)
         assert m["hdq_ms.frame"] <= unit_ms and m["host_syncs.frame"] > 0
         assert m["band_rows.frame"] > 0
+        assert m["hdq_graph_pct.frame"] == 0.0      # no band graphs on the CPU
     else:
         assert m["forward_ms.train"] + m["backward_ms.train"] <= unit_ms * (1 + 1e-9)
         assert m["forward_ms.train"] > 0 and m["backward_ms.train"] > 0
